@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels of `kernels/csrc/`.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with `ctypes`.  The build
+runs at first use into ``kernels/_build/<hash of the sources>/`` (listed in
+.gitignore), so a fresh checkout builds itself; a second process finds the
+library already there.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+LIB_NAME = "libofdm_minn_rtl.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+#: C signatures of the library's entry points (all return cudaError_t).
+SIGNATURES = {
+    "minn_rtl_metric_f32": [_P, _I, _I, _LL, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P],
+    "minn_rtl_metric_i16": [_P, _I, _I, _LL, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P],
+    "gate_events_f32": [_P, _P, _I, _LL, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class BuildInfo:
+    """Where the library is, how long the build took (0 if it was cached)
+    and what ptxas reported."""
+
+    def __init__(self, path: Path, seconds: float, log: str):
+        self.path, self.seconds, self.log = path, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> BuildInfo:
+    """Compile the kernels if this source hash has no library yet."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return BuildInfo(lib, 0.0, (out_dir / "build.log").read_text()
+                         if (out_dir / "build.log").exists() else "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    # build into a private name, then rename: concurrent builds never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    (out_dir / "build.log").write_text(log)
+    os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, log)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, with argtypes set for every entry."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ofdm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ofdm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().ofdm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

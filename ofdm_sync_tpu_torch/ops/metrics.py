@@ -1,0 +1,88 @@
+"""Minn-RTL adjacent-quarter detector metric (port of the Minn-RTL part of
+`ofdm_sync_tpu.ops.metrics`; reference minn_rtl.py:583-733,
+ref/minn_antenna_path.sv:33-194)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ofdm_sync_tpu_torch.ops.windows import (
+    exp_smooth_shift,
+    running_sum_stream,
+    shift_right,
+)
+
+
+class MinnRTLMetricState(NamedTuple):
+    corr_total: torch.Tensor      # sum over branches of corr_recent + corr_previous
+    corr_positive: torch.Tensor   # clip(corr_total, 0)
+    smooth_metric: torch.Tensor   # exponential smoothing of corr_positive
+    energy_total: torch.Tensor    # 3 stacked Q-window energies per branch
+    corr_scaled: torch.Tensor     # smooth * 2^frac_bits
+    energy_scaled: torch.Tensor   # energy_total * threshold_value
+    metric_valid: torch.Tensor    # bool; True from 3Q-1 on
+    above_threshold: torch.Tensor # metric_valid & (corr_scaled >= energy_scaled)
+
+
+def _as2d(x: torch.Tensor) -> torch.Tensor:
+    return x.unsqueeze(0) if x.ndim == 1 else x
+
+
+def antenna_path(x: torch.Tensor, quarter_len: int) -> dict[str, torch.Tensor]:
+    """Per-branch RTL datapath as shifts + running sums (zero priming):
+    quarter product Re(x[n] conj(x[n-Q])), two Q-window running sums, the
+    Q-delayed corr tap and the Q-/2Q-delayed energy taps."""
+    Q = quarter_len
+    xd = shift_right(x, Q)
+    quarter_product = (x * xd.conj()).real
+    power = x.abs() ** 2
+    corr_recent = running_sum_stream(quarter_product, Q)
+    energy_recent = running_sum_stream(power, Q)
+    return {
+        "corr_recent": corr_recent,
+        "corr_previous": shift_right(corr_recent, Q),
+        "energy_recent": energy_recent,
+        "energy_previous": shift_right(energy_recent, Q),
+        "energy_previous2": shift_right(energy_recent, 2 * Q),
+    }
+
+
+def minn_rtl_valid_from(quarter_len: int) -> int:
+    """First sample index with all taps valid: 3Q-1."""
+    return max(0, 3 * quarter_len - 1)
+
+
+def minn_rtl_metric(
+    rx: torch.Tensor,
+    *,
+    smooth_shift: int,
+    threshold_value: int,
+    threshold_frac_bits: int,
+    quarter_len: int,
+) -> MinnRTLMetricState:
+    """Branch-combined fixed-point metric with division-free threshold.
+    rx: complex (L,) or (branches, L)."""
+    x = _as2d(rx)
+    n = x.shape[-1]
+    Q = quarter_len
+    taps = antenna_path(x, Q)
+    corr_total = (taps["corr_recent"] + taps["corr_previous"]).sum(dim=0)
+    energy_total = (taps["energy_recent"] + taps["energy_previous"]
+                    + taps["energy_previous2"]).sum(dim=0)
+    corr_positive = corr_total.clamp_min(0.0)
+    metric_valid = torch.arange(n, device=x.device) >= minn_rtl_valid_from(Q)
+    smooth = exp_smooth_shift(corr_positive, smooth_shift, update_mask=metric_valid)
+    corr_scaled = smooth * float(1 << threshold_frac_bits)
+    energy_scaled = energy_total * float(threshold_value)
+    return MinnRTLMetricState(
+        corr_total=corr_total,
+        corr_positive=corr_positive,
+        smooth_metric=smooth,
+        energy_total=energy_total,
+        corr_scaled=corr_scaled,
+        energy_scaled=energy_scaled,
+        metric_valid=metric_valid,
+        above_threshold=metric_valid & (corr_scaled >= energy_scaled),
+    )
