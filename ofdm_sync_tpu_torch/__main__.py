@@ -1,7 +1,8 @@
 """CLI: ``python -m ofdm_sync_tpu_torch fused_rx [options]``.
 
-Only the flagship Minn-RTL receive chain is ported so far; the other
-subcommands of ``python -m ofdm_sync_tpu`` wait for later slices.
+Only the receive chains of `fused_rx` are ported so far ([A][A], the
+default, and the flagship Minn-RTL); the other subcommands of
+``python -m ofdm_sync_tpu`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     p_rx = sub.add_parser(
         "fused_rx",
-        help="flagship receive chain: fused Minn-RTL detect -> frame "
-             "re-emission -> CP CFO -> LS EQ -> EVM",
+        help="receive chain on the fused detector kernels: detect -> frame "
+             "re-emission -> CFO -> LS EQ -> EVM",
     )
     fused_rx.add_cli_args(p_rx)
     args = parser.parse_args(argv)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of `kernels/csrc/`.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with `ctypes`.  The build
-runs at first use into ``kernels/_build/<hash of the sources>/`` (listed in
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, loaded with `ctypes`.  The build runs at
+first use into ``kernels/_build/<hash of the sources>/`` (listed in
 .gitignore), so a fresh checkout builds itself; a second process finds the
 library already there.  Nothing here runs at import time.
 """
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-LIB_NAME = "libofdm_minn_rtl.so"
+LIB_NAME = "libofdm_sync_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +35,9 @@ SIGNATURES = {
     "minn_rtl_metric_f32": [_P, _I, _I, _LL, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P],
     "minn_rtl_metric_i16": [_P, _I, _I, _LL, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P],
     "gate_events_f32": [_P, _P, _I, _LL, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "aa_metric_f32": [_P, _I, _I, _LL, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
+    "aa_metric_i16": [_P, _I, _I, _LL, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -79,22 +82,36 @@ def build() -> BuildInfo:
         return BuildInfo(lib, 0.0, (out_dir / "build.log").read_text()
                          if (out_dir / "build.log").exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # build into a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *cu]
+    nvcc = find_nvcc()
+    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    (out_dir / "build.log").write_text(log)
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            cmd = [*common, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        # link into a private name, then rename: concurrent builds never
+        # load a half-written library
+        tmp_lib = os.path.join(tmp_dir, LIB_NAME)
+        link = [*common, "-shared", "-o", tmp_lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        seconds = time.perf_counter() - t0
+        (out_dir / "build.log").write_text(log)
+        os.replace(tmp_lib, lib)
     return BuildInfo(lib, seconds, log)
 
 

@@ -1,4 +1,4 @@
-// Block-wide scans shared by the Minn-RTL kernels.
+// Block-wide scans shared by the kernels.
 //
 // Every helper is called by ALL threads of the block (it contains
 // __syncthreads), needs blockDim.x to be a multiple of 32 and at most 1024,
@@ -45,6 +45,44 @@ __device__ __forceinline__ double2 block_excl_sum2(double2 v, double2* sbuf) {
   }
   __syncthreads();
   const double2 r = warp > 0 ? add2(sbuf[warp - 1], exc) : exc;
+  __syncthreads();
+  return r;
+}
+
+// ---- (sum, sum, sum) triple in float64: the [A][A] prefix sums ----------
+__device__ __forceinline__ double3 add3(double3 a, double3 b) {
+  return make_double3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+
+__device__ __forceinline__ double3 shfl_up3(double3 v, int d) {
+  return make_double3(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d),
+                      __shfl_up_sync(kFull, v.z, d));
+}
+
+// inclusive prefix of v over the block, and the block total in *total
+__device__ __forceinline__ double3 block_incl_sum3(double3 v, double3* sbuf,
+                                                   double3* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const double3 zero = make_double3(0.0, 0.0, 0.0);
+  double3 inc = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const double3 o = shfl_up3(inc, d);
+    if (lane >= d) inc = add3(o, inc);
+  }
+  if (lane == 31) sbuf[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    double3 t = lane < nw ? sbuf[lane] : zero;
+    for (int d = 1; d < 32; d <<= 1) {
+      const double3 o = shfl_up3(t, d);
+      if (lane >= d) t = add3(o, t);
+    }
+    if (lane < nw) sbuf[lane] = t;  // inclusive warp totals
+  }
+  __syncthreads();
+  const double3 r = warp > 0 ? add3(sbuf[warp - 1], inc) : inc;
+  *total = sbuf[nw - 1];
   __syncthreads();
   return r;
 }

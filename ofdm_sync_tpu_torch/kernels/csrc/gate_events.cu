@@ -1,10 +1,13 @@
-// Kernel B of the fused Minn-RTL detector: gate / hysteresis / peak events.
+// Kernel B of the fused detectors: gate / hysteresis / peak events.
 //
 // Replaces (TPU): the event machinery that ofdm_sync_tpu/kernels/
 // pallas_minn_tm.py:_tm_kernel runs on every grid step
 // (pallas_tm_common.py:event_update / event_finalize, and the lane-major
 // pallas_common.py:event_update / event_finalize of pallas_minn.py:
-// _detect_kernel).  Semantics are those of ops/detect.py:extract_gate_events:
+// _detect_kernel), and the event half of pallas_aa.py:_aa_kernel, which
+// also captures side channels (P_re, P_im, M) at each slot's peak
+// (pallas_common.py:event_update `extras`, event_finalize lines 418-419).
+// Semantics are those of ops/detect.py:extract_gate_events:
 // a gate opens at an above sample and closes at the h-th consecutive below
 // sample; gates are clusters of above runs with gaps <= h; the peak is the
 // (value, index) argmax of the tracked value over [gate_start, close] with
@@ -24,7 +27,10 @@
 // block max-scan of above indices gives the last above before every
 // sample, a block sum-scan of new-cluster flags gives the cluster id, and
 // each slot that occurs in the tile gets one block reduction of its start,
-// last above and one (value, index) argmax, merged into the slot.
+// last above and one (value, index) argmax, merged into the slot.  Peak
+// capture: the TPU kernel copies the side channels whenever a slot's peak
+// moves, so they always hold the values at the final peak index; here one
+// gather at that index when the table is written gives the same values.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -38,6 +44,15 @@ constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 constexpr int kMaxEvents = 128;
 constexpr int kI32Max = 0x7fffffff;
+constexpr int kMaxExtras = 3;
+
+// up to kMaxExtras (batch, L) float channels read at each slot's peak into
+// cap[(b * n + k) * E + slot]
+struct Extras {
+  const float* src[kMaxExtras];
+  int n;
+  float* cap;
+};
 
 // does (v2, i2) beat (v1, i1)?  one argmax for value and index together
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2,
@@ -53,7 +68,8 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     uint8_t* __restrict__ valid_out, uint8_t* __restrict__ closed_out,
     int* __restrict__ start_out, int* __restrict__ close_out,
     int* __restrict__ pidx_out, float* __restrict__ pval_out,
-    int* __restrict__ count_out, uint8_t* __restrict__ overflow_out) {
+    int* __restrict__ count_out, uint8_t* __restrict__ overflow_out,
+    Extras extras) {
   __shared__ int s_start[kMaxEvents], s_last[kMaxEvents], s_pidx[kMaxEvents];
   __shared__ float s_pval[kMaxEvents];
   __shared__ int s_carry_la, s_carry_cnt, s_cmin, s_cmax, s_count;
@@ -226,6 +242,13 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     close_out[o] = exists ? (int)min(max(close_raw, 0LL), L - 1) : 0;
     pidx_out[o] = exists ? s_pidx[s] : 0;
     pval_out[o] = exists ? s_pval[s] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxExtras; ++k) {  // constant k: no local-memory array
+      if (k >= extras.n) break;
+      const int p = s_pidx[s];
+      extras.cap[((size_t)b * extras.n + k) * E + s] =
+          exists && p >= 0 && p < L ? extras.src[k][(size_t)b * (size_t)L + p] : 0.0f;
+    }
     if (valid) atomicAdd(&s_count, 1);
   }
   __syncthreads();
@@ -237,16 +260,24 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
 
 }  // namespace
 
+// ex0..ex2: optional (batch, L) float channels captured at the peaks into
+// cap (batch, n_extra, E); n_extra = 0 captures nothing.
 extern "C" int gate_events_f32(const void* above, const void* track, int batch,
                                long long L, int valid_from, int h, int E,
                                int tie_last, int emit_unclosed, void* valid,
                                void* closed, void* start, void* close,
                                void* pidx, void* pval, void* count,
-                               void* overflow, void* stream) {
+                               void* overflow, const void* ex0, const void* ex1,
+                               const void* ex2, int n_extra, void* cap,
+                               void* stream) {
   if (E < 1 || E > kMaxEvents) return (int)cudaErrorInvalidValue;
+  if (n_extra < 0 || n_extra > kMaxExtras) return (int)cudaErrorInvalidValue;
+  const Extras extras{{(const float*)ex0, (const float*)ex1, (const float*)ex2},
+                      n_extra, (float*)cap};
   gate_events_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)above, (const float*)track, L, valid_from, h, E,
       tie_last, emit_unclosed, (uint8_t*)valid, (uint8_t*)closed, (int*)start,
-      (int*)close, (int*)pidx, (float*)pval, (int*)count, (uint8_t*)overflow);
+      (int*)close, (int*)pidx, (float*)pval, (int*)count, (uint8_t*)overflow,
+      extras);
   return (int)cudaGetLastError();
 }

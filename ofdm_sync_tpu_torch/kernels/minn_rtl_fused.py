@@ -8,13 +8,15 @@ kernels (`csrc/minn_rtl_metric.cu`, `csrc/gate_events.cu`):
 * kernel A, `minn_rtl_metric`: per-sample corr_positive and above, one CTA
   per (time chunk, stream), each chunk primed from a left halo;
 * kernel B, `gate_events`: one CTA per stream walks its time tiles in order
-  and writes the event table.
+  and writes the event table.  The [A][A] detector (`kernels.aa_fused`)
+  uses it too, through `gate_events_capture`, which also reads side
+  channels at each slot's peak.
 
 Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
-tensor it launches its kernel (and counts the launch in ``.launches``); on
-a CPU tensor it runs the plain PyTorch version (`kernels.streaming`,
-`ops.detect.extract_gate_events`); any other device raises.  There is no
-fallback from one to the other.
+tensor it launches its kernel (and counts the launch in ``.launches``, see
+`kernels.launches`); on a CPU tensor it runs the plain PyTorch version
+(`kernels.streaming`, `ops.detect.extract_gate_events`); any other device
+raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ import torch
 from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
 from ofdm_sync_tpu_torch.kernels.streaming import minn_rtl_metric_planar
-from ofdm_sync_tpu_torch.ops.detect import GateEvents, empty_table, extract_gate_events
+from ofdm_sync_tpu_torch.ops.detect import (
+    GateEvents,
+    empty_table,
+    extract_gate_events,
+    extract_gate_events_capture,
+)
 
 #: output samples per kernel-A CTA
 CHUNK = 4096
@@ -126,45 +133,75 @@ def gate_events(
     """Kernel B.  above bool (batch, L), track float32 (batch, L) ->
     `GateEvents` (batch, max_events); same semantics as
     `ops.detect.extract_gate_events`."""
+    return _gate_events(above, track, (), hysteresis=hysteresis, max_events=max_events,
+                        valid_from=valid_from, tie=tie, emit_unclosed=emit_unclosed)[0]
+
+
+gate_events.launches = 0
+
+
+def gate_events_capture(
+    above: torch.Tensor,
+    track: torch.Tensor,
+    extras: tuple[torch.Tensor, ...],
+    **kw,
+) -> tuple[GateEvents, torch.Tensor]:
+    """Kernel B with peak capture: `gate_events` plus each of the up to
+    three float32 (batch, L) ``extras`` read at every slot's peak index ->
+    (table, captured (batch, len(extras), max_events)), zero where the slot
+    holds no gate; same semantics as
+    `ops.detect.extract_gate_events_capture`.  Counts on
+    ``gate_events.launches``."""
+    if not 1 <= len(extras) <= 3:
+        raise ValueError("kernel B captures one to three channels")
+    return _gate_events(above, track, tuple(extras), **kw)
+
+
+def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0,
+                 tie="first", emit_unclosed=True):
     if tie not in ("first", "last"):
         raise ValueError("tie must be 'first' or 'last'")
     if not 1 <= max_events <= MAX_EVENTS:
         raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
     if above.shape != track.shape or above.dim() != 2:
         raise ValueError("above and track must both be (batch, L)")
-    if check_kernel_device(above, track) == "cpu":
-        return extract_gate_events(
-            above, track, hysteresis=hysteresis, max_events=max_events,
-            valid_from=valid_from, tie=tie, emit_unclosed=emit_unclosed)
-    if above.dtype != torch.bool or track.dtype != torch.float32:
-        raise TypeError("kernel B takes bool above and float32 track")
-    if not (above.is_contiguous() and track.is_contiguous()):
+    if any(e.shape != track.shape for e in extras):
+        raise ValueError("every captured channel must be (batch, L) like track")
+    kw = dict(hysteresis=hysteresis, max_events=max_events, valid_from=valid_from,
+              tie=tie, emit_unclosed=emit_unclosed)
+    if check_kernel_device(above, track, *extras) == "cpu":
+        if extras:
+            return extract_gate_events_capture(above, track, extras, **kw)
+        return extract_gate_events(above, track, **kw), None
+    if above.dtype != torch.bool or any(t.dtype != torch.float32 for t in (track, *extras)):
+        raise TypeError("kernel B takes bool above and float32 track and channels")
+    if not all(t.is_contiguous() for t in (above, track, *extras)):
         raise ValueError("kernel B needs contiguous inputs")
     batch, L = above.shape
     if L >= _I32_LIMIT:
         raise ValueError("streams must be shorter than 2^31 samples")
-    if batch == 0:
-        return empty_table((0,), max_events, track.dtype, track.device)
     dev, E = track.device, max_events
+    cap = torch.empty((batch, len(extras), E), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return empty_table((0,), max_events, track.dtype, dev), (cap if extras else None)
     new = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
     valid, closed = new(torch.uint8, batch, E), new(torch.uint8, batch, E)
     start, close, pidx = (new(torch.int32, batch, E) for _ in range(3))
     pval = new(torch.float32, batch, E)
     count, overflow = new(torch.int32, batch), new(torch.uint8, batch)
+    ex = [e.data_ptr() for e in extras] + [None] * (3 - len(extras))
     err = build.library().gate_events_f32(
         above.data_ptr(), track.data_ptr(), batch, L, valid_from, max(int(hysteresis), 1), E,
         int(tie == "last"), int(emit_unclosed), valid.data_ptr(), closed.data_ptr(),
         start.data_ptr(), close.data_ptr(), pidx.data_ptr(), pval.data_ptr(), count.data_ptr(),
-        overflow.data_ptr(), _stream(track))
+        overflow.data_ptr(), *ex, len(extras), cap.data_ptr(), _stream(track))
     build.check(err, "gate_events")
     gate_events.launches += 1
-    return GateEvents(
+    table = GateEvents(
         valid=valid.view(torch.bool), closed=closed.view(torch.bool),
         gate_start=start, gate_close=close, peak_idx=pidx, peak_value=pval,
         count=count, overflow=overflow.view(torch.bool))
-
-
-gate_events.launches = 0
+    return table, (cap if extras else None)
 
 
 def minn_rtl_detect_fused(
@@ -190,25 +227,7 @@ def minn_rtl_detect_fused(
     corr, above = minn_rtl_metric(
         x, quarter_len=quarter_len, smooth_shift=smooth_shift,
         threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits)
-    table = gate_events(
+    return gate_events(
         above, corr, hysteresis=hysteresis, max_events=max_events,
         valid_from=max(0, 3 * quarter_len - 1), tie=tie,
         emit_unclosed=emit_unclosed)
-    if x.is_cuda:
-        minn_rtl_detect_fused.launches += 1
-    return table
-
-
-minn_rtl_detect_fused.launches = 0
-
-#: the wrappers whose ``.launches`` count kernel launches
-KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, minn_rtl_detect_fused)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

@@ -33,6 +33,9 @@ class DetectionResult:
     def detected(self) -> bool:
         return len(self.events) > 0
 
+    def best_by(self, key) -> DetectionEvent | None:
+        return max(self.events, key=key) if self.events else None
+
 
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)

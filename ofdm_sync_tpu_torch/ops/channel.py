@@ -1,9 +1,11 @@
-"""Channel emulation: measured-CIR FIR, AWGN, CFO (port of the parts of
-`ofdm_sync_tpu.ops.channel` the Minn-RTL receive chain uses).
+"""Channel emulation: measured-CIR FIR, AWGN, CFO, 12-bit ADC (port of the
+parts of `ofdm_sync_tpu.ops.channel` the Minn-RTL and [A][A] receive chains
+use).
 
-The FIR and CFO run in PyTorch on the signal's device; the noise comes
+The FIR, CFO and ADC run in PyTorch on the signal's device.  Noise comes
 from the host NumPy Generator with the reference's exact draw order, so a
-seed gives the same noise as the JAX package.
+seed gives the same noise as the JAX package; the batched grid sweep draws
+its noise from an explicit `torch.Generator` instead (`awgn_noise_device`).
 """
 
 from __future__ import annotations
@@ -99,6 +101,63 @@ def apply_channel(signal: np.ndarray, snr_db: float, rng: np.random.Generator,
     return faded + awgn_noise_host(faded, snr_db, rng)
 
 
+def apply_channel_multi_antenna(
+    tx: np.ndarray,
+    snr_db: float,
+    rng: np.random.Generator,
+    channel_name: str | None = None,
+    num_rx_antennas: int = 2,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """Per-antenna measured CIR (FIR on ``device``) and per-antenna
+    independent host noise, drawn real then imag per antenna (reference
+    sync_aa.py:577-634).  Returns (rx (antennas, L) on the host, cir or
+    None, channel peak offset)."""
+    if channel_name is None:
+        p = np.mean(np.abs(tx) ** 2)
+        std = np.sqrt(p / (10 ** (snr_db / 10)) / 2)
+        rx = np.zeros((num_rx_antennas, len(tx)), dtype=complex)
+        for ant in range(num_rx_antennas):
+            rx[ant] = tx + std * (
+                rng.standard_normal(len(tx)) + 1j * rng.standard_normal(len(tx)))
+        return rx, None, 0
+    cir_bank = load_measured_cir(channel_name)
+    if cir_bank.shape[0] >= num_rx_antennas:
+        cir = cir_bank[:num_rx_antennas].copy()
+    else:
+        cir = np.tile(cir_bank, (num_rx_antennas // cir_bank.shape[0] + 1, 1))[
+            :num_rx_antennas]
+    faded = apply_cir(tx, cir, device).cpu().numpy()  # complex64, as the JAX FIR
+    rx = np.zeros_like(faded)
+    for ant in range(num_rx_antennas):
+        p = np.mean(np.abs(faded[ant]) ** 2)
+        std = np.sqrt(p / (10 ** (snr_db / 10)) / 2)
+        rx[ant] = faded[ant] + std * (
+            rng.standard_normal(faded.shape[1]) + 1j * rng.standard_normal(faded.shape[1]))
+    return rx, cir, compute_channel_peak_offset(cir)
+
+
+def awgn_noise_device(signal: torch.Tensor, snr_db, generator: torch.Generator) -> torch.Tensor:
+    """Complex64 AWGN with per-branch power matching, drawn from an explicit
+    ``torch.Generator`` (real plane, then imag plane) on the generator's
+    device and moved to the signal's device, so one seed gives the same
+    noise on any device.  signal: complex (branches, L) or (L,); snr_db: a
+    float or a tensor of shape (...), which gives noise of shape
+    (..., branches, L) -- one draw per SNR config.  The JAX package draws
+    from `jax.random` keys instead: the two agree in distribution only."""
+    x = signal if signal.ndim >= 2 else signal.unsqueeze(0)
+    snr = torch.as_tensor(snr_db, dtype=torch.float32, device=x.device)
+    snr = snr.reshape(snr.shape + (1, 1))
+    p = (x.abs() ** 2).mean(dim=-1, keepdim=True)
+    std = torch.sqrt(p / 10.0 ** (snr / 10.0) / 2)   # (..., branches, 1)
+    shape = std.shape[:-1] + x.shape[-1:]
+    nr = torch.randn(shape, generator=generator, device=generator.device)
+    ni = torch.randn(shape, generator=generator, device=generator.device)
+    noise = std * torch.complex(nr, ni).to(x.device)
+    noise = torch.where(p > 0, noise, torch.zeros((), dtype=noise.dtype, device=x.device))
+    return noise if signal.ndim >= 2 else noise[..., 0, :]
+
+
 def apply_cfo(samples: torch.Tensor, cfo_hz: float, fs_hz: float) -> torch.Tensor:
     """Multiply by ``exp(j 2 pi f n / fs)``, the same tone on every branch.
 
@@ -122,3 +181,34 @@ def apply_cfo(samples: torch.Tensor, cfo_hz: float, fs_hz: float) -> torch.Tenso
         ph = ph + torch.remainder(digit * c, two_pi_f)
     tone = torch.complex(torch.cos(ph), torch.sin(ph))
     return x * tone
+
+
+def quantize_adc(samples: torch.Tensor, full_scale, bits: int = 12) -> torch.Tensor:
+    """Mid-tread signed quantizer with clipping, I and Q independently
+    (reference sync_aa.py:263-315).  ``full_scale``: a float, or a tensor
+    that broadcasts against ``samples``."""
+    levels = 2 ** (bits - 1)
+
+    def q(v):
+        v = (v / full_scale).clamp(-1.0, 1.0 - 1.0 / levels)
+        return torch.round(v * levels) / levels * full_scale
+
+    return torch.complex(q(samples.real), q(samples.imag))
+
+
+def compute_clipping_stats(samples: np.ndarray, full_scale: float, bits: int = 12) -> dict:
+    """Clip fractions + effective bits, on the host (reference
+    sync_aa.py:294-315)."""
+    samples = np.asarray(samples)
+    real_hit = np.abs(samples.real) >= full_scale
+    imag_hit = np.abs(samples.imag) >= full_scale
+    signal_rms = np.sqrt(np.mean(np.abs(samples) ** 2))
+    effective_bits = bits + np.log2(signal_rms / full_scale) if full_scale > 0 else 0
+    return {
+        "real_clip_pct": 100 * (np.sum(real_hit) / samples.size),
+        "imag_clip_pct": 100 * (np.sum(imag_hit) / samples.size),
+        "total_clip_pct": 100 * (np.sum(real_hit | imag_hit) / samples.size),
+        "effective_bits": max(0, effective_bits),
+        "signal_rms": signal_rms,
+        "full_scale": full_scale,
+    }

@@ -9,8 +9,9 @@ above of the cluster + h, peak = argmax of the tracked value over
 indices and per-slot reductions over a static event capacity.
 
 `extract_gate_events` is the plain PyTorch version of the CUDA gate/event
-kernel (`kernels/csrc/gate_events.cu`); it works on the last axis and
-broadcasts over leading batch axes.
+kernel (`kernels/csrc/gate_events.cu`), and `extract_gate_events_capture`
+that of its peak-capture mode; both work on the last axis and broadcast
+over leading batch axes.
 """
 
 from __future__ import annotations
@@ -93,6 +94,31 @@ def extract_gate_events(
     earliest maximum wins; ``'last'``: latest.  ``emit_unclosed``: emit an
     event for a gate still open at end of stream.
     """
+    return _extract(above, track, hysteresis=hysteresis, max_events=max_events,
+                    valid_from=valid_from, tie=tie, emit_unclosed=emit_unclosed)[0]
+
+
+def extract_gate_events_capture(
+    above: torch.Tensor,
+    track: torch.Tensor,
+    extras: tuple[torch.Tensor, ...],
+    **kw,
+) -> tuple[GateEvents, torch.Tensor]:
+    """`extract_gate_events` plus each ``extras`` array (..., n) read at every
+    slot's peak index: returns (table, captured (..., len(extras), E)),
+    zero where the slot holds no gate (``pallas_common.event_finalize``)."""
+    table, exists = _extract(above, track, **kw)
+    if above.shape[-1] == 0:
+        return table, torch.zeros(exists.shape[:-1] + (len(extras),) + exists.shape[-1:],
+                                  dtype=track.dtype, device=track.device)
+    idx = table.peak_idx.to(torch.int64)
+    cap = [torch.where(exists, a.gather(-1, idx), 0.0) for a in extras]
+    return table, torch.stack(cap, dim=-2)
+
+
+def _extract(above, track, *, hysteresis, max_events=8, valid_from=0, tie="first",
+             emit_unclosed=True) -> tuple[GateEvents, torch.Tensor]:
+    """The table and its ``exists`` mask (slot < gates found)."""
     if tie not in ("first", "last"):
         raise ValueError("tie must be 'first' or 'last'")
     n = above.shape[-1]
@@ -100,7 +126,8 @@ def extract_gate_events(
     lead = tuple(above.shape[:-1])
     dev = above.device
     if n == 0:
-        return empty_table(lead, max_events, track.dtype, dev)
+        return (empty_table(lead, max_events, track.dtype, dev),
+                torch.zeros(lead + (max_events,), dtype=torch.bool, device=dev))
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     above = above.to(torch.bool) & (idx >= valid_from)
 
@@ -150,7 +177,7 @@ def extract_gate_events(
                                                              device=dev)),
         count=valid.sum(dim=-1, dtype=i32),
         overflow=total > max_events,
-    )
+    ), exists
 
 
 def gate_open_mask(above: torch.Tensor, hysteresis: int,

@@ -1,6 +1,7 @@
-"""Minn-RTL adjacent-quarter detector metric (port of the Minn-RTL part of
-`ofdm_sync_tpu.ops.metrics`; reference minn_rtl.py:583-733,
-ref/minn_antenna_path.sv:33-194)."""
+"""Detector metrics (port of the Minn-RTL and [A][A] parts of
+`ofdm_sync_tpu.ops.metrics`): the Minn-RTL adjacent-quarter metric
+(reference minn_rtl.py:583-733, ref/minn_antenna_path.sv:33-194) and the
+[A][A] streaming metric (reference sync_aa.py:421-493)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from ofdm_sync_tpu_torch.ops.windows import (
+    delayed_product,
     exp_smooth_shift,
     running_sum_stream,
     shift_right,
@@ -86,3 +88,35 @@ def minn_rtl_metric(
         metric_valid=metric_valid,
         above_threshold=metric_valid & (corr_scaled >= energy_scaled),
     )
+
+
+# ---------------------------------------------------------------------------
+# [A][A] streaming detector metric (reference sync_aa.py:421-493)
+# ---------------------------------------------------------------------------
+
+_EPS = 1e-12
+
+
+class AAMetricState(NamedTuple):
+    P: torch.Tensor      # complex correlation, running L-window of the lag-L product
+    R: torch.Tensor      # current-window energy
+    M: torch.Tensor      # min(|P|^2 / R^2, 1), 0 where invalid
+    valid: torch.Tensor  # bool, True from n >= L
+
+
+def aa_metric(rx: torch.Tensor, L: int) -> AAMetricState:
+    """Causal streaming [A][A] metric with RTL fill semantics.
+
+    ``P[n] = sum_{k=n-L+1}^{n} x[k] conj(x[k-L])`` (zero products while the
+    delay line primes), ``R[n]`` the energy of the current window, both
+    summed over branches; valid from n >= L.  rx: complex (L,) or
+    (branches, L)."""
+    x = _as2d(rx)
+    n = x.shape[-1]
+    P = running_sum_stream(delayed_product(x, L), L).sum(dim=0)
+    R = running_sum_stream(x.abs() ** 2, L).sum(dim=0)
+    valid = torch.arange(n, device=x.device) >= L
+    Rc = R.clamp_min(_EPS)
+    M = torch.where(valid & (R > 1e-6 * L),
+                    (P.abs() ** 2 / (Rc * Rc)).clamp_max(1.0), torch.zeros_like(R))
+    return AAMetricState(P=P, R=R, M=M, valid=valid)

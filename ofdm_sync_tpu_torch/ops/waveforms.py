@@ -1,5 +1,5 @@
-"""Preamble / OFDM symbol construction used by the Minn-RTL receive chain
-(port of the NumPy builders of `ofdm_sync_tpu.ops.waveforms`).
+"""Preamble / OFDM symbol construction used by the Minn-RTL and [A][A]
+receive chains (port of the NumPy builders of `ofdm_sync_tpu.ops.waveforms`).
 
 Stimulus is built on the host in NumPy float64 with the reference's exact
 RNG call order, so a seed gives the same frames as the JAX package and the
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams
+from ofdm_sync_tpu_torch.params import SYS_30M72, SYS_AA_10M, SystemParams
 
 
 # ---------------------------------------------------------------------------
@@ -48,6 +48,12 @@ def add_cyclic_prefix(symbol: np.ndarray, cp_len: int) -> np.ndarray:
     if cp_len <= 0:
         return symbol
     return np.concatenate((symbol[-cp_len:], symbol))
+
+
+def papr_db(x: np.ndarray) -> float:
+    """Peak-to-average power ratio in dB (reference sync_aa.py:230-233)."""
+    p = np.abs(x) ** 2
+    return float(10 * np.log10(np.max(p) / np.mean(p)))
 
 
 # ---------------------------------------------------------------------------
@@ -171,3 +177,49 @@ def assemble_frame(*symbols: np.ndarray, pre_pad: int = 0, post_pad: int = 0) ->
     if post_pad > 0:
         parts.append(np.zeros(post_pad, dtype=complex))
     return np.concatenate(parts)
+
+
+# ---------------------------------------------------------------------------
+# [A][A] preamble of the 10 MHz AA system (reference sync_aa.py:160-257)
+# ---------------------------------------------------------------------------
+
+AA_PREAMBLE_LENGTHS = (1024, 512, 256)
+
+
+def build_aa_preamble(
+    total_length: int = 1024, sys: SystemParams = SYS_AA_10M
+) -> tuple[np.ndarray, np.ndarray, float]:
+    """[A][A] preamble: ZC on every Kth FFT bin inside the active band,
+    K = 2N / total.  Returns (time preamble, frequency sequence, PAPR dB)."""
+    if total_length not in AA_PREAMBLE_LENGTHS:
+        raise ValueError(f"total_length must be one of {AA_PREAMBLE_LENGTHS}")
+    K = 2 * sys.n_fft // total_length
+    dc_bin = sys.n_fft // 2
+    half_active = sys.num_active // 2
+    used_bins = np.array([
+        dc_bin + off for off in range(-half_active, half_active + 1)
+        if off != 0 and (dc_bin + off) % K == 0
+    ])
+    num_sc = len(used_bins)
+    root = 25 if num_sc % 25 != 0 else 23
+    n = np.arange(num_sc)
+    zc_seq = np.exp(-1j * np.pi * root * n * (n + 1) / num_sc)
+    spectrum = np.zeros(sys.n_fft, dtype=complex)
+    spectrum[used_bins] = zc_seq
+    preamble = (np.fft.ifft(spectrum) * np.sqrt(sys.n_fft))[:total_length]
+    preamble = preamble / np.sqrt(np.mean(np.abs(preamble) ** 2))
+    return preamble, zc_seq, papr_db(preamble)
+
+
+def build_aa_qpsk_symbol(
+    rng: np.random.Generator, sys: SystemParams = SYS_AA_10M
+) -> tuple[np.ndarray, np.ndarray]:
+    """Random QPSK pilot/data symbol of the AA system with its CP; returns
+    (time_domain, used_values) (reference sync_aa.py:238-257)."""
+    idx = centered_subcarrier_indices(sys.num_active)
+    phases = rng.integers(0, 4, size=len(idx))
+    qpsk = np.exp(1j * np.pi / 4 * (2 * phases + 1)) / np.sqrt(2)
+    symbol = np.fft.ifft(np.fft.ifftshift(allocate_subcarriers(sys.n_fft, idx, qpsk)))
+    symbol = symbol * np.sqrt(sys.n_fft)
+    symbol = symbol / np.sqrt(np.mean(np.abs(symbol) ** 2))
+    return np.concatenate([symbol[-sys.cp_len:], symbol]), qpsk

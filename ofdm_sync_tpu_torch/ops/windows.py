@@ -37,6 +37,14 @@ def shift_right(x: torch.Tensor, delay: int, fill=0) -> torch.Tensor:
     return torch.cat([head, x[..., : n - delay]], dim=-1)
 
 
+def delayed_product(x: torch.Tensor, delay: int) -> torch.Tensor:
+    """``u[n] = x[n] * conj(x[n - delay])``, zero for ``n < delay`` (the lag
+    product of every streaming autocorrelator)."""
+    prod = x * shift_right(x, delay).conj()
+    n = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(n >= delay, prod, torch.zeros((), dtype=prod.dtype, device=x.device))
+
+
 def running_sum_stream(x: torch.Tensor, window: int) -> torch.Tensor:
     """Causal running sum with zero history:
     ``y[n] = sum_{k=max(0, n-window+1)}^{n} x[k]``, same length as x."""

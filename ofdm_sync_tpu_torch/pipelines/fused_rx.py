@@ -1,15 +1,20 @@
-"""The flagship receive chain end to end (port of
-`ofdm_sync_tpu.pipelines.fused_rx.run_fused_rx_minn_rtl`).
+"""The receive chains end to end (port of `ofdm_sync_tpu.pipelines.fused_rx`).
 
-Two-frame Minn-RTL stimulus on the 30.72 MHz system (reference
-minn_rtl.py:884-889: [pad | frame | guard | frame]) -> fused detection ->
-aligned frame re-emission -> per frame: CP-based CFO on the pilot CP ->
-LS channel estimate from the pilot -> equalize the data symbol -> EVM.
+* `run_fused_rx`: the [A][A] chain on the 10 MHz AA system: frames through
+  a 2-antenna channel, CFO and a 12-bit ADC -> fused [A][A] detection
+  (kernels C + B) with (P, M) captured at each peak -> aligned frame
+  re-emission -> CFO from the event table -> LS channel estimate on the
+  pilot -> equalize the data symbol -> EVM, per frame.
+* `run_fused_rx_minn_rtl`: the flagship Minn-RTL chain (reference
+  minn_rtl.py:884-889: [pad | frame | guard | frame]) -> fused Minn-RTL
+  detection (kernels A + B) -> aligned frame re-emission -> per frame:
+  CP-based CFO on the pilot CP -> LS channel estimate -> equalize -> EVM.
+
 Everything after the host-built stimulus runs on ``device``: the CUDA
 kernels on a card, their plain versions on the CPU.
 
-Run: ``python -m ofdm_sync_tpu_torch fused_rx --family minn_rtl
-[--snr 0] [--channel cir1] [--cfo 1000] [--device cuda]``.
+Run: ``python -m ofdm_sync_tpu_torch fused_rx [--family aa|minn_rtl]
+[--snr 10] [--channel cir1] [--cfo 500] [--num-frames 2] [--device cuda]``.
 """
 
 from __future__ import annotations
@@ -20,8 +25,13 @@ import numpy as np
 import torch
 
 from ofdm_sync_tpu_torch.device import resolve_device
-from ofdm_sync_tpu_torch.models.detectors import MinnRTLDetector
-from ofdm_sync_tpu_torch.ops.channel import apply_cfo
+from ofdm_sync_tpu_torch.models.detectors import AADetector, MinnRTLDetector
+from ofdm_sync_tpu_torch.ops.channel import (
+    apply_cfo,
+    apply_channel_multi_antenna,
+    compute_clipping_stats,
+    quantize_adc,
+)
 from ofdm_sync_tpu_torch.ops.estimate import (
     align_complex_gain,
     equalize,
@@ -29,10 +39,22 @@ from ofdm_sync_tpu_torch.ops.estimate import (
     evm_rms_db,
     ls_channel_estimate,
 )
-from ofdm_sync_tpu_torch.ops.waveforms import build_minn_rtl_preamble, ofdm_fft_used
-from ofdm_sync_tpu_torch.params import MinnRTLParams, SYS_30M72
+from ofdm_sync_tpu_torch.ops.waveforms import (
+    build_aa_preamble,
+    build_aa_qpsk_symbol,
+    build_minn_rtl_preamble,
+    ofdm_fft_used,
+)
+from ofdm_sync_tpu_torch.params import AADetectorParams, MinnRTLParams, SYS_30M72, SYS_AA_10M
 from ofdm_sync_tpu_torch.pipelines import common
 from ofdm_sync_tpu_torch.utils import report
+
+
+SNR_DB = 10.0
+CFO_HZ = 500.0
+PREAMBLE_LEN = 1024
+FULL_SCALE_RATIO = 2.0
+SEED = 42
 
 
 @dataclass
@@ -52,6 +74,134 @@ class FusedRxResult:
     evm_db: float
     frames: list = field(default_factory=list)  # per-frame FrameResult
     starts: list = field(default_factory=list)  # detected frame starts
+
+
+def _demod(frame_planar: torch.Tensor, cfo_est: float, offsets: tuple[int, int], sys_p,
+           pilot_used: torch.Tensor, data_used: torch.Tensor):
+    """Receive stages of one re-emitted frame on its device: CFO
+    correction, antenna combine, pilot LS channel estimate, equalize the
+    data symbol, EVM.  Returns (evm_pct, evm_db, gain)."""
+    ants = torch.complex(frame_planar[0::2], frame_planar[1::2])
+    combined = apply_cfo(ants, -cfo_est, sys_p.sample_rate_hz).mean(dim=0)
+    pilot_off, data_off = offsets
+    n_fft = sys_p.n_fft
+    pilot_bins = ofdm_fft_used(combined[pilot_off: pilot_off + n_fft], sys_p)
+    data_bins = ofdm_fft_used(combined[data_off: data_off + n_fft], sys_p)
+    h_est = ls_channel_estimate(pilot_bins, pilot_used)
+    eq_aligned, gain = align_complex_gain(equalize(data_bins, h_est), data_used)
+    evm_rms, evm_db = evm_rms_db(eq_aligned, data_used)
+    return 100.0 * float(evm_rms), float(evm_db), complex(gain)
+
+
+def run_fused_rx(
+    snr_db: float = SNR_DB,
+    channel_name: str | None = None,
+    cfo_hz: float = CFO_HZ,
+    preamble_length: int = PREAMBLE_LEN,
+    full_scale_ratio: float = FULL_SCALE_RATIO,
+    seed: int = SEED,
+    num_frames: int = 1,
+    device: torch.device | str | None = None,
+) -> FusedRxResult:
+    """Synthesize ``num_frames`` [A][A] frames, receive them through the
+    fused detector, re-emit each aligned frame window on the device and
+    demodulate it; prints the same report as the JAX pipeline."""
+    dev = resolve_device(device)
+    sys_p = SYS_AA_10M
+    fs = sys_p.sample_rate_hz
+    rng = np.random.default_rng(seed)
+
+    # --- transmit: [pad | frame | gap | frame ... | pad] ------------------
+    preamble, _, papr_db = build_aa_preamble(preamble_length, sys_p)
+    pilot_symbol, pilot_used = build_aa_qpsk_symbol(rng, sys_p)
+    data_symbol, data_used = build_aa_qpsk_symbol(rng, sys_p)
+    frame = np.concatenate([preamble, pilot_symbol, data_symbol])
+    flen = frame.shape[0]
+    parts = [np.zeros(sys_p.tx_pre_pad, complex)]
+    tx_starts = []
+    pos = sys_p.tx_pre_pad
+    for k in range(num_frames):
+        parts.append(frame)
+        tx_starts.append(pos)
+        pos += flen
+        if k < num_frames - 1:
+            parts.append(np.zeros(flen, complex))
+            pos += flen
+    parts.append(np.zeros(500, complex))
+    tx = np.concatenate(parts)
+
+    # --- channel + CFO + 12-bit ADC (reference sync_aa.py:712-735) --------
+    rx, _cir, channel_peak_offset = apply_channel_multi_antenna(
+        tx, snr_db, rng, channel_name, num_rx_antennas=2, device=dev)
+    true_starts = [s + channel_peak_offset for s in tx_starts]
+    rx = apply_cfo(torch.as_tensor(rx, device=dev).to(torch.complex64), cfo_hz, fs)
+    # full scale and clipping from the complex64 samples on the host, as
+    # the JAX pipeline takes them (a 1-ulp change moves round() at .5)
+    rx_host = rx.cpu().numpy()
+    full_scale = float(np.sqrt(np.mean(np.abs(rx_host) ** 2)) * full_scale_ratio)
+    clip = compute_clipping_stats(rx_host.flatten(), full_scale)
+    rx_q = quantize_adc(rx, full_scale)
+
+    # --- detect + re-emit aligned frames, all on the device ---------------
+    det = AADetector(sys_p, AADetectorParams(preamble_len=preamble_length))
+    result, frames, starts, valid = det.detect_fused_frames(rx_q, frame_len=flen, max_frames=4)
+    best = AADetector.best(result)
+    starts_h = starts.cpu().numpy()
+    valid_h = valid.cpu().numpy()
+
+    channel_str = channel_name if channel_name else "awgn"
+    report.banner(
+        f"FUSED-KERNEL RECEIVE CHAIN - [A][A] {preamble_length}, "
+        f"{channel_str.upper()}, SNR {snr_db:+.0f} dB"
+    )
+    print(f"Stream: {rx_q.shape[1]} samples x {rx_q.shape[0]} antennas, "
+          f"12-bit ADC (clipping {clip['total_clip_pct']:.2f}%), "
+          f"preamble PAPR {papr_db:.2f} dB, {num_frames} frame(s) sent")
+    if best is None or not valid_h.any():
+        print("NO DETECTION -- receiver idle")
+        return FusedRxResult(False, -1, float("nan"), float("nan"), float("nan"))
+
+    n_det = int(valid_h.sum())
+    print(f"\nDetection (in-kernel event table -> device-side frame "
+          f"re-emission, {n_det} frame window(s)):")
+
+    pilot_off = preamble_length + sys_p.cp_len
+    data_off = pilot_off + sys_p.n_fft + sys_p.cp_len
+    pilot_t = torch.as_tensor(pilot_used, device=dev).to(torch.complex64)
+    data_t = torch.as_tensor(data_used, device=dev).to(torch.complex64)
+    frame_results: list[FrameResult] = []
+    events = result.events
+    for k in range(n_det):
+        ev = events[k] if k < len(events) else None
+        tstart = true_starts[k] if k < len(true_starts) else true_starts[-1]
+        timing_err = int(starts_h[k]) - tstart
+        cfo_est = ev.cfo_hz if ev is not None else 0.0
+        cfo_err = cfo_est - cfo_hz
+        # local-index CFO correction: the constant phase offset against the
+        # stream-absolute correction is absorbed by the LS estimate
+        evm_pct, evm_db, gain = _demod(frames[k], cfo_est, (pilot_off, data_off), sys_p,
+                                       pilot_t, data_t)
+        frame_results.append(FrameResult(timing_err, float(cfo_err), evm_pct, evm_db))
+        print(f"  Frame {k}: start {int(starts_h[k])} (true {tstart}, "
+              f"error {timing_err:+d}), CFO {cfo_est:.2f} Hz "
+              f"(error {cfo_err:+.2f}), EVM {evm_pct:.2f}% "
+              f"({evm_db:.2f} dB), gain {abs(gain):.3f}")
+        if abs(timing_err) > sys_p.cp_len:
+            # the multipath group-delay offset (+77..+94 samples, reference
+            # docs/aa_preamble_sync_design.md section 13) exceeds this
+            # system's 72-sample CP: ISI degrades the EQ below
+            print(f"    NOTE: timing error exceeds the {sys_p.cp_len}-sample "
+                  "CP (multipath group delay) -- expect ISI")
+
+    first = frame_results[0]
+    print(f"\n  Gate [{best.gate_start}, {best.gate_end}], peak metric "
+          f"M={best.metric_at_peak:.3f}, events={len(result.events)}")
+    print(report.BANNER)
+    return FusedRxResult(
+        True, first.timing_error, first.cfo_error_hz, first.evm_pct,
+        first.evm_db, frames=frame_results,
+        starts=[int(s) for s in starts_h[:n_det]],
+    )
 
 
 def run_fused_rx_minn_rtl(
@@ -110,8 +260,7 @@ def run_fused_rx_minn_rtl(
     n_fft, cp = sys_p.n_fft, sys_p.cp_len
     pilot_cp_off = 5 * Q                        # local frame layout
     pilot_n_off = pilot_cp_off + cp
-    data_cp_off = pilot_n_off + n_fft
-    data_n_off = data_cp_off + cp
+    data_n_off = pilot_n_off + n_fft + cp
     pilot_used = torch.as_tensor(setup.pilot_used, device=dev).to(torch.complex64)
     data_used = torch.as_tensor(setup.data_used, device=dev).to(torch.complex64)
 
@@ -123,13 +272,8 @@ def run_fused_rx_minn_rtl(
         ants = torch.complex(fp[0::2], fp[1::2])
         cfo_est = float(estimate_cfo_from_cp(ants, pilot_cp_off, n_fft, cp, fs))
         cfo_err = cfo_est - cfo_hz
-        combined = apply_cfo(ants, -cfo_est, fs).mean(dim=0)
-        pilot_bins = ofdm_fft_used(combined[pilot_n_off: pilot_n_off + n_fft], sys_p)
-        data_bins = ofdm_fft_used(combined[data_n_off: data_n_off + n_fft], sys_p)
-        h_est = ls_channel_estimate(pilot_bins, pilot_used)
-        eq_aligned, _gain = align_complex_gain(equalize(data_bins, h_est), data_used)
-        evm_rms, evm_db = evm_rms_db(eq_aligned, data_used)
-        evm_pct, evm_db = 100.0 * float(evm_rms), float(evm_db)
+        evm_pct, evm_db, _gain = _demod(fp, cfo_est, (pilot_n_off, data_n_off), sys_p,
+                                        pilot_used, data_used)
         frame_results.append(FrameResult(timing_err, float(cfo_err), evm_pct, evm_db))
         print(f"  Frame {k}: start {int(starts_h[k])} (true {tstart}, "
               f"error {timing_err:+d}), CFO {cfo_est:.2f} Hz "
@@ -150,18 +294,30 @@ def run_fused_rx_minn_rtl(
 
 
 def add_cli_args(ap) -> None:
-    ap.add_argument("--family", default="minn_rtl", choices=("minn_rtl",),
-                    help="minn_rtl: the flagship Minn-RTL 30.72 MHz family "
-                    "(the only family ported so far)")
-    ap.add_argument("--snr", type=float, default=0.0)
+    ap.add_argument("--family", default="aa", choices=("aa", "minn_rtl"),
+                    help="aa: 10 MHz [A][A] system; minn_rtl: the flagship "
+                    "Minn-RTL 30.72 MHz family")
+    ap.add_argument("--snr", type=float, default=None)
     ap.add_argument("--channel", default=None, help="cir1 / cir2 / omit for AWGN")
-    ap.add_argument("--cfo", type=float, default=1000.0)
+    ap.add_argument("--cfo", type=float, default=None)
+    ap.add_argument("--preamble-len", type=int, default=PREAMBLE_LEN)
+    ap.add_argument("--num-frames", type=int, default=1)
     ap.add_argument("--device", default="cpu", help="cpu or cuda")
 
 
 def run_cli(args) -> FusedRxResult:
-    return run_fused_rx_minn_rtl(
-        snr_db=args.snr, channel_name=args.channel, cfo_hz=args.cfo,
+    if args.family == "minn_rtl":
+        return run_fused_rx_minn_rtl(
+            snr_db=args.snr if args.snr is not None else 0.0,
+            channel_name=args.channel,
+            cfo_hz=args.cfo if args.cfo is not None else 1000.0,
+            device=args.device)
+    return run_fused_rx(
+        snr_db=args.snr if args.snr is not None else SNR_DB,
+        channel_name=args.channel,
+        cfo_hz=args.cfo if args.cfo is not None else CFO_HZ,
+        preamble_length=args.preamble_len,
+        num_frames=args.num_frames,
         device=args.device)
 
 

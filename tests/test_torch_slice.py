@@ -78,7 +78,8 @@ def test_receive_chain_matches_jax(capsys):
 
 
 def test_cli_runs_the_chain(capsys):
-    assert t_main(["fused_rx", "--snr", "30", "--channel", "cir2"]) == 0
+    assert t_main(["fused_rx", "--family", "minn_rtl", "--snr", "30", "--channel",
+                   "cir2"]) == 0
     out = capsys.readouterr().out
     assert "CIR2, SNR +30 dB" in out and "Frame 1:" in out
 
