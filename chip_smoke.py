@@ -16,7 +16,15 @@ checkout, then, for each ported path:
   (`run_fused_rx`) and the fused grid sweep (`run_grid_test_fused`) on the
   card and on the CPU, and runs the fused detector at bench.py's secondary
   size (512 x 262144 x 2 branches, L = 512, float32), timed against the
-  plain version.
+  plain version;
+* Zadoff-Chu: checks kernel D (CFAR gate input, magnitude and IQ modes, f32
+  and int16 IQ) and kernel E (matched filter, against a complex128 FFT
+  convolution) against their plain versions, kernel B at h = 256, drives
+  `ZCStreamingDetector.detect_fused` / `detect_fused_iq` on the card
+  against the CPU `detect` and the `zc` / `zc_v2` simulations, and times
+  bench.py's ZC workloads (the CFAR and from-IQ detectors at 512 x 262144
+  (x 2 branches), kernel E and E -> D -> B at 64 x 262144 x 2, T = 2048)
+  against the plain versions.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
@@ -44,18 +52,29 @@ sys.path.insert(0, ROOT)
 
 from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import build  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.launches import launch_counts, reset_launch_counts  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
     aa_detect_step,
     aa_metric_planar,
     minn_rtl_metric_planar,
+    zc_cfar_planar,
+    zc_iq_planar,
 )
+from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
+from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     extract_gate_events,
     extract_gate_events_capture,
 )
+from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
+from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
+from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams  # noqa: E402
+from ofdm_sync_tpu_torch.pipelines import zc, zc_v2  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.aa import run_grid_test_fused  # noqa: E402
+from ofdm_sync_tpu_torch.pipelines.common import build_setup  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import (  # noqa: E402
     run_fused_rx,
     run_fused_rx_minn_rtl,
@@ -514,6 +533,330 @@ def phase_aa_headline(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Zadoff-Chu: kernel D (both modes), kernel E, and kernel B at h = 256
+# ---------------------------------------------------------------------------
+
+#: the ZC streaming CFAR defaults (params.ZCStreamingParams)
+ZC_CFAR = dict(corr_window=2048, threshold_value=64, threshold_frac_bits=15, min_corr_mag=0.3)
+ZC_EVENTS = dict(hysteresis=256, max_events=16, valid_from=2048, tie="first", emit_unclosed=True)
+#: an above bit of kernel D may differ from the plain version only where
+#: |mag*2^frac - local*T| is within this fraction of local*T: both take the
+#: W-window local sums of the (non-integer) magnitude from float64 prefixes,
+#: but from prefixes that start at other samples
+ZC_KNIFE_RTOL = 1e-6
+#: kernel E against a complex128 FFT convolution, relative to the output peak
+MF_RTOL = 1e-5
+#: bench.py's ZC workloads (bench.py:478-613): the CFAR and from-IQ
+#: detectors at 512 x 262144 (x 2 branches), the matched filter and the
+#: from-IQ composition at 64 x 262144 x 2, all with the 2048-tap template
+ZC_HEADLINE = dict(batch=512, n=1 << 18, mf_batch=64)
+
+
+def pss_template(n_fft: int):
+    """The PSS symbol of an n_fft-point system as complex64, its planar
+    conjugate-reversed taps (2, n_fft) and its norm, as
+    `ZCStreamingDetector.detect_fused_iq` builds them."""
+    sys_p = SYS_30M72 if n_fft == 2048 else SystemParams(n_fft=n_fft, num_active=144, cp_len=64)
+    ref = np.asarray(build_pss_symbol(sys_p), np.complex64)
+    taps = np.stack([ref.real[::-1], -ref.imag[::-1]]).astype(np.float32)
+    return ref, taps, float(np.sqrt(np.sum(np.abs(ref) ** 2)))
+
+
+def zc_iq_stimulus(batch: int, n: int, ref, device, *, seed: int = 0, events=()):
+    """(4, batch, n) float32 integer-valued noise round(8 N(0,1)) from a
+    seeded generator on `device`, with the template scaled to integers
+    round(24 x) added on both branches at each (stream, position)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((4, batch, n), generator=g, device=device).mul_(8.0).round_()
+    planes = [torch.as_tensor(np.round(24.0 * part), dtype=torch.float32, device=device)
+              for part in (ref.real, ref.imag)]
+    for b, pos in events:
+        k = min(len(ref), n - pos)
+        for c in range(4):
+            x[c, b, pos: pos + k] += planes[c % 2][:k]
+    return x
+
+
+def mf_reference(x, taps) -> torch.Tensor:
+    """complex128 FFT convolution of the plane pairs of x with the taps."""
+    xc = torch.complex(x[0::2].double(), x[1::2].double())
+    t = torch.as_tensor(taps, device=x.device).double()
+    y = fft_convolve_full(xc, torch.complex(t[0], t[1]))
+    return torch.stack([y.real, y.imag], dim=1).reshape((x.shape[0],) + y.shape[1:])
+
+
+def check_mf(x, taps, what: str) -> float:
+    """Kernel E vs complex128 within MF_RTOL of the output peak; returns
+    max |err|."""
+    y = MF.matched_filter_ols(x, taps)
+    ref = mf_reference(x, taps)
+    torch.cuda.synchronize()
+    if y.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(y.shape)} != {tuple(ref.shape)}")
+    err, peak = float((y.double() - ref).abs().max()), float(ref.abs().max())
+    if err > MF_RTOL * peak:
+        raise AssertionError(f"{what}: kernel E err {err} > {MF_RTOL} * peak {peak}")
+    log(f"  kernel {what}: max |err| {err:.3g} = {err / peak:.3g} of the peak")
+    return err
+
+
+def zc_knife_bits(above, ref_above, mag, what: str) -> int:
+    """Above bits where kernel D and the plain version differ; raises if
+    one lies off the knife edge."""
+    diff = above != ref_above
+    if not bool(diff.any()):
+        return 0
+    e_s = running_sum_stream(mag, ZC_CFAR["corr_window"]) * float(ZC_CFAR["threshold_value"])
+    margin = (mag * float(1 << ZC_CFAR["threshold_frac_bits"]) - e_s).abs()
+    if (diff & ~(margin <= ZC_KNIFE_RTOL * e_s.abs())).any():
+        raise AssertionError(f"{what}: above differs off the knife edge at "
+                             f"{diff.nonzero()[:5].tolist()}")
+    n = int(diff.sum())
+    log(f"  {what}: {n} above bit(s) differ on the knife edge")
+    return n
+
+
+def check_zc_table(table, above, ref_above, ref_mag, what: str) -> None:
+    """A D+B table vs the plain table; where knife-edge bits differ, vs
+    plain events on kernel D's own gate input instead."""
+    knife = zc_knife_bits(above, ref_above, ref_mag, what)
+    ref = extract_gate_events(above if knife else ref_above, ref_mag, **ZC_EVENTS)
+    assert_tables_equal(ref, table, what)
+
+
+def check_zc_iq(mf, iq, R, ref_norm, what: str):
+    """Kernel D in IQ mode and D + B vs the plain versions: mag bit-equal,
+    above off the knife edge equal, tables equal.  Returns (table, max
+    |mag err|)."""
+    kw = dict(ref_len=R, ref_norm=ref_norm, **ZC_CFAR)
+    o = ZF.zc_metric(mf, iq, **kw)
+    mag_p, above_p = zc_iq_planar(mf, iq, **kw)
+    table = ZF.zc_iq_cfar_detect(mf, iq, **kw, hysteresis=256)
+    torch.cuda.synchronize()
+    err = check_equal(o.mag, mag_p, f"{what} mag")
+    if not bool(torch.isfinite(o.mag).all()):
+        raise AssertionError(f"{what}: non-finite magnitude")
+    check_zc_table(table, o.above, above_p, mag_p, what)
+    return table, err
+
+
+def check_zc_found(table, events, R, what: str) -> None:
+    """Every injected template is found at peak = position + R - 1 (+-2)."""
+    for b, pos in events:
+        pk = table.peak_idx[b][table.valid[b]].tolist()
+        if not any(abs(p - (pos + R - 1)) <= 2 for p in pk):
+            raise AssertionError(f"{what}: template at {b}:{pos} not found (peaks {pk})")
+
+
+def mag_stimulus(batch: int, n: int, device, *, seed: int, events=()):
+    """Correlation magnitudes: 0.05 |N(0,1)| with a peak of 1 and its
+    sidelobes at each (stream, position)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, n), generator=g, device=device).abs_().mul_(0.05)
+    for b, pos in events:
+        for d, v in ((-3, 0.2), (-1, 0.6), (0, 1.0), (1, 0.5), (4, 0.25)):
+            if 0 <= pos + d < n:
+                x[b, pos + d] += v
+    return x
+
+
+def phase_zc_kernels(dev) -> dict:
+    log("== phase 10: kernels D and E vs plain PyTorch on the card")
+    g = torch.Generator(device=dev).manual_seed(11)
+    mf_errs = []
+    # kernel E: taps 1 .. 2049, lengths off its 2048-output tiles and across
+    # the TPU kernel's 14336-sample block seams
+    for T, batch, n in ((1, 3, 5000), (62, 5, 14335), (200, 7, 14336), (2048, 3, 14337),
+                        (2049, 5, 2 * 14336 + 37)):
+        x = torch.randn((4, batch, n), generator=g, device=dev)
+        taps = torch.randn((2, T), generator=g, device=dev)
+        mf_errs.append(check_mf(x, taps, f"E T={T} batch={batch} n={n}"))
+    x = torch.randn((2, 2, 9000), generator=g, device=dev)
+    taps = torch.randn((2, 300), generator=g, device=dev)
+    y = MF.matched_filter_ols(x, taps, out_len=9500)
+    check_equal(y[..., :9299], MF.matched_filter_ols(x, taps)[..., :9299], "E out_len")
+    if float(y[..., 9299:].abs().max()) != 0.0:
+        raise AssertionError("E out_len: nonzero output past L + T - 1")
+
+    # kernel D, IQ mode (f32 and int16 ADC codes), then D + B
+    errs = []
+    for R, batch, n, dt in ((256, 3, 14335, torch.float32), (2048, 5, 14337, torch.int16),
+                            (256, 7, 2 * 14336 + 37, torch.int16),
+                            (2048, 3, 5000, torch.float32), (2048, 7, 40_017, torch.float32)):
+        ref, taps, ref_norm = pss_template(R)
+        events = [(0, 2300), (min(1, batch - 1), n // 2), (batch - 1, n - R - 40)]
+        x = zc_iq_stimulus(batch, n, ref, dev, seed=R + n, events=events)
+        mf = MF.matched_filter_ols(x, taps)
+        what = f"D R={R} batch={batch} n={n} {str(dt)[6:]}"
+        table, err = check_zc_iq(mf, x.to(dt), R, ref_norm, what)
+        check_zc_found(table, events, R, what)
+        errs.append(err)
+        log(f"  {what}: ok (mag bit-equal, {int(table.count.sum())} events)")
+
+    # kernel D, magnitude mode, then D + B
+    for batch, n in ((3, 14335), (5, 2 * 14336 + 37), (7, 5000)):
+        events = [(0, 2100), (batch - 1, n - 300), (batch // 2, n // 2 + 2048)]
+        events = [(b, p) for b, p in events if p < n]
+        mag = mag_stimulus(batch, n, dev, seed=n, events=events)
+        o = ZF.zc_metric(mag, **ZC_CFAR)
+        table = ZF.zc_cfar_detect(mag, **ZC_CFAR)
+        what = f"D magnitude batch={batch} n={n}"
+        check_zc_table(table, o.above, zc_cfar_planar(mag, **ZC_CFAR), mag, what)
+        for b, pos in events:
+            if pos not in table.peak_idx[b][table.valid[b]].tolist():
+                raise AssertionError(f"{what}: peak at {b}:{pos} not found")
+        log(f"  {what}: ok ({int(table.count.sum())} events)")
+
+    # zero signal: finite mag, no event; a stream shorter than W: no event
+    ref, taps, ref_norm = pss_template(256)
+    for dt in (torch.float32, torch.int16):
+        x = torch.zeros((4, 3, 20_000), dtype=dt, device=dev)
+        mf = MF.matched_filter_ols(x.float(), taps)
+        t, err = check_zc_iq(mf, x, 256, ref_norm, f"zero signal {str(dt)[6:]}")
+        errs.append(err)
+        if int(t.count.sum()) != 0:
+            raise AssertionError("zero signal: events")
+    x = zc_iq_stimulus(2, 1000, ref, dev, events=[(0, 300)])
+    t, _ = check_zc_iq(MF.matched_filter_ols(x, taps), x, 256, ref_norm, "short stream")
+    t2 = ZF.zc_cfar_detect(mag_stimulus(2, 1500, dev, seed=1, events=[(0, 700)]), **ZC_CFAR)
+    if int(t.count.sum()) + int(t2.count.sum()) != 0:
+        raise AssertionError("short stream: events before the CFAR is valid")
+    # kernel B's dense gates at the ZC hysteresis, capacities 16 and 128
+    for E, density in ((16, 0.002), (128, 0.01)):
+        above = torch.rand((5, 300_000), generator=g, device=dev) < density
+        track = torch.randint(0, 50, (5, 300_000), generator=g, device=dev).float()
+        for tie in ("first", "last"):
+            for emit in (False, True):
+                kw = dict(hysteresis=256, max_events=E, valid_from=2048, tie=tie,
+                          emit_unclosed=emit)
+                check_events(above, track, f"dense h=256 E={E} tie={tie} emit={emit}", **kw)
+    log("  edge cases: ok")
+    return {"mf_err": max(mf_errs), "mag_err": max(errs)}
+
+
+ZC_CHAIN_CASES = (("awgn", None, 3384), ("cir1", "cir1", 3549))
+
+
+def phase_zc_chain(dev) -> dict:
+    log("== phase 11: the ZC paths, card vs CPU")
+    det = ZCStreamingDetector()
+    setups = {}
+    for label, channel, _ in ZC_CHAIN_CASES:
+        setups[label] = build_setup(build_pss_symbol(SYS_30M72), np.random.default_rng(0),
+                                    channel_name=channel, cir_mode="two", snr_db=10.0,
+                                    cfo_hz=1000.0)
+    reset_launch_counts()
+    runs = {label: (det.detect_fused(s.rx.to(dev)), det.detect_fused_iq(s.rx.to(dev)))
+            for label, s in setups.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for label, channel, want_peak in ZC_CHAIN_CASES:
+        cpu = det.detect(setups[label].rx)
+        v2 = quiet(zc_v2.run_simulation, channel)
+        t = quiet(zc.run_simulation, channel)
+        for name, res in zip(("detect_fused", "detect_fused_iq"), runs[label]):
+            got = [(e.peak_index, e.detected_start) for e in res.events]
+            if got != [(e.peak_index, e.detected_start) for e in cpu.events]:
+                raise AssertionError(f"{label} {name}: card events {got} != cpu")
+            if ZCStreamingDetector.strongest(res).peak_index != want_peak:
+                raise AssertionError(f"{label} {name}: strongest peak is not {want_peak}")
+        if (v2["peak_index"], v2["num_events"]) != (want_peak, len(cpu.events)):
+            raise AssertionError(f"{label}: zc_v2 run {v2}")
+        log(f"  {label}: card == cpu ({len(cpu.events)} events, strongest peak {want_peak}, "
+            f"detected start {v2['detected_start']}); zc_v2 CFO {v2['cfo_est_hz']:.2f} Hz, EVM "
+            f"{100 * v2['evm_rms']:.2f} %; zc peak {t['peak_index']}, CFO "
+            f"{t['cfo_est_hz']:.2f} Hz, EVM {100 * t['evm_rms']:.2f} %")
+    if min(counts["zc_metric"], counts["matched_filter_ols"], counts["gate_events"]) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    log(f"  launches during the card paths: {counts}")
+    return {"counts": counts}
+
+
+def phase_zc_headline(dev, card: str) -> dict:
+    B, n, Bm = ZC_HEADLINE["batch"], ZC_HEADLINE["n"], ZC_HEADLINE["mf_batch"]
+    ref, taps, ref_norm = pss_template(2048)
+    R = len(ref)
+    log(f"== phase 12: ZC headline, {B} x {n} x 2 branches, R = W = {R}")
+    events = [(0, 3000), (1, n // 3), (2, n // 2), (3, n - R - 500)]
+    x = zc_iq_stimulus(B, n, ref, dev, events=events)
+    quiet_streams = torch.ones(B, dtype=torch.bool, device=dev)
+    quiet_streams[[b for b, _ in events]] = False
+    res = {}
+
+    def check_found(table, what):
+        check_zc_found(table, events, R, what)
+        if int(table.count[quiet_streams[: table.count.shape[0]]].sum()) != 0:
+            raise AssertionError(f"{what}: events in noise-only streams")
+
+    # the from-IQ detector (#8/#9): mf from kernel E, IQ as f32 and int16
+    mf = MF.matched_filter_ols(x, taps)
+    kw = dict(ref_len=R, ref_norm=ref_norm, **ZC_CFAR)
+    x16 = x.to(torch.int16)
+    for name, iq in (("f32", x), ("i16", x16)):
+        table, _ = check_zc_iq(mf, iq, R, ref_norm, f"zc_iq headline {name}")
+        check_found(table, f"zc_iq headline {name}")
+        res[f"iq_{name}_ms"] = cuda_ms(lambda: ZF.zc_iq_cfar_detect(mf, iq, **kw))
+        res[f"d_iq_{name}_ms"] = cuda_ms(lambda: ZF.zc_metric(mf, iq, **kw))
+    o = ZF.zc_metric(mf, x, **kw)
+    res["b_ms"] = cuda_ms(lambda: F.gate_events(o.above, o.mag, **ZC_EVENTS))
+    res["plain_d_iq_ms"] = cuda_ms(lambda: zc_iq_planar(mf, x, **kw))
+    mag_p, above_p = zc_iq_planar(mf, x, **kw)
+    res["plain_b_ms"] = cuda_ms(lambda: extract_gate_events(above_p, mag_p, **ZC_EVENTS))
+    del mag_p, above_p
+    torch.cuda.empty_cache()
+    res["plain_iq_ms"] = res["plain_d_iq_ms"] + res["plain_b_ms"]
+    log(f"  from-IQ D+B: f32 {res['iq_f32_ms']:.3f} ms = {B * n / res['iq_f32_ms'] * 1e3:.4g} "
+        f"samples/s (D {res['d_iq_f32_ms']:.3f} ms, B {res['b_ms']:.3f} ms), int16 "
+        f"{res['iq_i16_ms']:.3f} ms (D {res['d_iq_i16_ms']:.3f} ms); plain "
+        f"{res['plain_iq_ms']:.3f} ms (D {res['plain_d_iq_ms']:.3f}, B {res['plain_b_ms']:.3f});"
+        f" card {card}")
+
+    # the CFAR detector (#7) on the kernel's own magnitudes, first n samples
+    mag = o.mag[:, :n].contiguous()
+    del o, mf, x16
+    torch.cuda.empty_cache()
+    table = ZF.zc_cfar_detect(mag, **ZC_CFAR)
+    check_zc_table(table, ZF.zc_metric(mag, **ZC_CFAR).above, zc_cfar_planar(mag, **ZC_CFAR), mag,
+                   "zc_cfar headline")
+    check_found(table, "zc_cfar headline")
+    res["cfar_ms"] = cuda_ms(lambda: ZF.zc_cfar_detect(mag, **ZC_CFAR))
+    res["d_mag_ms"] = cuda_ms(lambda: ZF.zc_metric(mag, **ZC_CFAR))
+    res["plain_cfar_ms"] = cuda_ms(lambda: extract_gate_events(
+        zc_cfar_planar(mag, **ZC_CFAR), mag, **ZC_EVENTS))
+    del mag
+    torch.cuda.empty_cache()
+    log(f"  CFAR D+B: {res['cfar_ms']:.3f} ms = {B * n / res['cfar_ms'] * 1e3:.4g} samples/s "
+        f"(D {res['d_mag_ms']:.3f} ms); plain {res['plain_cfar_ms']:.3f} ms; card {card}")
+
+    # kernel E and E -> D -> B at bench.py's matched-filter shape
+    xm = x[:, :Bm].contiguous()
+    del x
+    torch.cuda.empty_cache()
+    hm = MF.planar_taps(taps, dev)
+    res["e_ms"] = cuda_ms(lambda: MF.matched_filter_ols(xm, taps))
+    res["plain_e_ms"] = cuda_ms(lambda: MF.matched_filter_plain(xm, hm, n + R - 1))
+
+    def e2e():
+        return ZF.zc_iq_cfar_detect(MF.matched_filter_ols(xm, taps), xm, **kw)
+
+    def e2e_plain():
+        mfp = MF.matched_filter_plain(xm, hm, n + R - 1)
+        mag_p, above_p = zc_iq_planar(mfp, xm, **kw)
+        return extract_gate_events(above_p, mag_p, **ZC_EVENTS)
+
+    table = e2e()
+    assert_tables_equal(e2e_plain(), table, "E->D->B", peak_rtol=1e-4)
+    check_found(table, "E->D->B")
+    res["e2e_ms"] = cuda_ms(e2e)
+    res["plain_e2e_ms"] = cuda_ms(e2e_plain)
+    N = Bm * n
+    log(f"  kernel E {res['e_ms']:.3f} ms = {N / res['e_ms'] * 1e3:.4g} samples/s, plain FFT "
+        f"{res['plain_e_ms']:.3f} ms; E->D->B {res['e2e_ms']:.3f} ms = "
+        f"{N / res['e2e_ms'] * 1e3:.4g} samples/s, plain {res['plain_e2e_ms']:.3f} ms "
+        f"({Bm} x {n} x 2 branches, T = {R}); card {card}")
+    return res
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -542,9 +885,13 @@ def main() -> int:
     aa_chain = phase_aa_chain(dev)
     aa_sweep = phase_aa_sweep(dev)
     aa_head = phase_aa_headline(dev, card)
+    zc_k = phase_zc_kernels(dev)
+    zc_chain = phase_zc_chain(dev)
+    zc_head = phase_zc_headline(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    for name in counts}
+    zc_launches = zc_chain["counts"]
     kernels = [
         dict(name="minn_rtl_metric", route="cuda",
              source="ofdm_sync_tpu_torch/kernels/csrc/minn_rtl_metric.cu",
@@ -554,8 +901,11 @@ def main() -> int:
         dict(name="gate_events", route="cuda",
              source="ofdm_sync_tpu_torch/kernels/csrc/gate_events.cu",
              replaces="ofdm_sync_tpu/kernels/pallas_minn_tm.py:60, "
-                      "ofdm_sync_tpu/kernels/pallas_aa.py:221",
-             launches=counts["gate_events"] + aa_launches["gate_events"], max_abs_err=0.0,
+                      "ofdm_sync_tpu/kernels/pallas_aa.py:221, "
+                      "ofdm_sync_tpu/kernels/pallas_zc.py:35, "
+                      "ofdm_sync_tpu/kernels/pallas_zc.py:156",
+             launches=counts["gate_events"] + aa_launches["gate_events"]
+             + zc_launches["gate_events"], max_abs_err=0.0,
              ms=h32["b_ms"], plain_ms=h32["plain_b_ms"]),
         dict(name="aa_metric", route="cuda",
              source="ofdm_sync_tpu_torch/kernels/csrc/aa_metric.cu",
@@ -563,10 +913,22 @@ def main() -> int:
                       "ofdm_sync_tpu/kernels/pallas_aa.py:221",
              launches=aa_launches["aa_metric"], max_abs_err=aa_k["max_err"],
              ms=aa_head["c_ms"], plain_ms=aa_head["plain_c_ms"]),
+        dict(name="zc_metric", route="cuda",
+             source="ofdm_sync_tpu_torch/kernels/csrc/zc_cfar.cu",
+             replaces="ofdm_sync_tpu/kernels/pallas_zc.py:35, "
+                      "ofdm_sync_tpu/kernels/pallas_zc.py:156, "
+                      "ofdm_sync_tpu/kernels/pallas_zc_tm.py:78",
+             launches=zc_launches["zc_metric"], max_abs_err=zc_k["mag_err"],
+             ms=zc_head["d_iq_f32_ms"], plain_ms=zc_head["plain_d_iq_ms"]),
+        dict(name="matched_filter_ols", route="cuda",
+             source="ofdm_sync_tpu_torch/kernels/csrc/matched_filter.cu",
+             replaces="ofdm_sync_tpu/kernels/pallas_mf.py:137",
+             launches=zc_launches["matched_filter_ols"], max_abs_err=zc_k["mf_err"],
+             ms=zc_head["e_ms"], plain_ms=zc_head["plain_e_ms"]),
     ]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"headline": head, "aa_headline": aa_head,
-                      "aa_chain_ms": aa_chain["chain_ms"]}))
+                      "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,13 @@ Ported so far:
 * the [A][A] receive chain (detector D9 on the 10 MHz AA system, 12-bit
   ADC): fused detection with (P, M) captured at each peak -> aligned frame
   re-emission -> CFO from the event table -> LS EQ -> EVM, and the [A][A]
-  grid harness (`pipelines.aa`).
+  grid harness (`pipelines.aa`);
+* the Zadoff-Chu family (detectors D5 and D7 on the 30.72 MHz system):
+  matched filter -> per-branch normalization -> CFAR -> strongest event ->
+  CFO / LS EQ / EVM (`pipelines.zc`, `pipelines.zc_v2`), with the fused
+  CFAR paths of `ZCStreamingDetector`.
 
-Plain tensor code is PyTorch; the detection hot paths are the three
+Plain tensor code is PyTorch; the detection hot paths are the five
 hand-written CUDA kernels for the H100 in `kernels/csrc/`.  On CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.  The package
 never imports JAX.

@@ -1,14 +1,21 @@
-"""CLI: ``python -m ofdm_sync_tpu_torch fused_rx [options]``.
+"""CLI: ``python -m ofdm_sync_tpu_torch <command> [options]``.
 
-Only the receive chains of `fused_rx` are ported so far ([A][A], the
-default, and the flagship Minn-RTL); the other subcommands of
-``python -m ofdm_sync_tpu`` wait for later slices.
+Ported so far: the receive chains of `fused_rx` ([A][A], the default, and
+the flagship Minn-RTL) and the Zadoff-Chu simulations `zc` and `zc_v2`
+(without their plots); the other subcommands of ``python -m
+ofdm_sync_tpu`` wait for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import sys
+
+_SIMULATIONS = {
+    "zc": "Zadoff-Chu time-domain matched filter (reference zc.py)",
+    "zc_v2": "streaming/CFAR Zadoff-Chu detector (reference zc_v2.py)",
+}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -25,9 +32,15 @@ def main(argv: list[str] | None = None) -> int:
              "re-emission -> CFO -> LS EQ -> EVM",
     )
     fused_rx.add_cli_args(p_rx)
+    for name, help_text in _SIMULATIONS.items():
+        p = sub.add_parser(name, help=help_text)
+        p.add_argument("--device", default="cpu", help="cpu or cuda")
     args = parser.parse_args(argv)
     if args.command == "fused_rx":
         fused_rx.run_cli(args)
+    else:
+        importlib.import_module(f"ofdm_sync_tpu_torch.pipelines.{args.command}").main(
+            device=args.device)
     return 0
 
 

@@ -87,6 +87,50 @@ __device__ __forceinline__ double3 block_incl_sum3(double3 v, double3* sbuf,
   return r;
 }
 
+// ---- N sums in float64: the ZC energy and magnitude prefix sums -----------
+template <int N>
+struct DVec {
+  double v[N];
+};
+
+// inclusive prefix of each of the N sums over the block, block totals in *total
+template <int N>
+__device__ __forceinline__ DVec<N> block_incl_sum_n(DVec<N> x, DVec<N>* sbuf, DVec<N>* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  DVec<N> inc = x;
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const double o = __shfl_up_sync(kFull, inc.v[k], d);
+      if (lane >= d) inc.v[k] = o + inc.v[k];
+    }
+  }
+  if (lane == 31) sbuf[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    DVec<N> t;
+#pragma unroll
+    for (int k = 0; k < N; ++k) t.v[k] = lane < nw ? sbuf[lane].v[k] : 0.0;
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const double o = __shfl_up_sync(kFull, t.v[k], d);
+        if (lane >= d) t.v[k] = o + t.v[k];
+      }
+    }
+    if (lane < nw) sbuf[lane] = t;  // inclusive warp totals
+  }
+  __syncthreads();
+  if (warp > 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) inc.v[k] = sbuf[warp - 1].v[k] + inc.v[k];
+  }
+  *total = sbuf[nw - 1];
+  __syncthreads();
+  return inc;
+}
+
 // ---- affine maps s -> A*s + B in float32: the smoothing recurrence --------
 // compose(l, r) applies l first, then r.
 __device__ __forceinline__ float2 compose(float2 l, float2 r) {

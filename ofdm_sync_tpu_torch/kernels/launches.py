@@ -9,10 +9,12 @@ the counts, driving its path and reading them.
 from __future__ import annotations
 
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_metric
+from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import gate_events, minn_rtl_metric
+from ofdm_sync_tpu_torch.kernels.zc_fused import zc_metric
 
-#: one wrapper per kernel: A, B, C
-KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric)
+#: one wrapper per kernel: A, B, C, D, E
+KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols)
 
 
 def reset_launch_counts() -> None:

@@ -13,6 +13,12 @@ These are the plain versions of the CUDA kernels in `kernels/csrc/`:
   over branches in float64, L-window sums from float64 cumulative sums,
   then the gate input (`aa_detect_step`).  Integer-valued input makes
   every step exact, so kernel C and this version agree bit for bit.
+* Zadoff-Chu CFAR: the gate input of kernel D (`zc_cfar.cu`), on a given
+  correlation magnitude (`zc_cfar_planar`) or from the matched filter's
+  output and the IQ (`zc_iq_planar`: per-branch window energy,
+  normalization, branch sum, magnitude).  Energies and local sums come
+  from float64 cumulative sums cast once to float32; on integer-valued IQ
+  the magnitude agrees with kernel D bit for bit.
 """
 
 from __future__ import annotations
@@ -146,3 +152,57 @@ def _aa_normalized(track: torch.Tensor, R: torch.Tensor, L: int):
     M = torch.where(valid & (R > 1e-6 * L), (track / (Rc * Rc)).clamp_max(1.0),
                     torch.zeros_like(R))
     return M, valid
+
+
+def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def cfar_gate(mag: torch.Tensor, *, corr_window: int, threshold_value: int,
+              threshold_frac_bits: int, min_corr_mag: float):
+    """The ZC CFAR gate input (`pallas_zc.py:116-121`): ``n >= W`` and
+    ``mag * 2^frac >= local_sum * T`` and ``mag >= min_corr_mag``, with the
+    W-window local sum from a float64 cumulative sum cast once to float32
+    and every product rounded once in float32.  Returns (above, local_sum)."""
+    local_sum = running_sum_stream(mag, corr_window)
+    n = torch.arange(mag.shape[-1], device=mag.device)
+    above = ((n >= corr_window)
+             & (mag * _f32(float(1 << threshold_frac_bits), mag)
+                >= local_sum * _f32(float(threshold_value), mag))
+             & (mag >= _f32(min_corr_mag, mag)))
+    return above, local_sum
+
+
+def zc_cfar_planar(corr_mag: torch.Tensor, **cfar) -> torch.Tensor:
+    """Kernel D in magnitude mode: corr_mag float32 (..., L) -> above bool
+    (..., L) (`cfar_gate`'s keywords).  The gate/peak events then track
+    corr_mag itself."""
+    return cfar_gate(corr_mag, **cfar)[0]
+
+
+def zc_iq_planar(mf: torch.Tensor, iq: torch.Tensor, *, ref_len: int, ref_norm: float,
+                 **cfar) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D in IQ mode, op for op as `pallas_zc.py:203-237`.
+
+    mf: (2*BR, batch, Lc) float32 planar matched-filter rows; iq: (2*BR,
+    batch, L_iq) float32 or int16, rows [b0_i, b0_q, b1_i, ...].  Per
+    branch the power ``i*i + q*q`` (float64, exact products) is summed over
+    the ``ref_len`` window ending at each correlation index (float64
+    cumulative sum, cast once to float32; samples at or past L_iq are zero,
+    the 'full'-convolution alignment of `sliding_energy_full`); then
+    ``inv = 1 / (ref_norm * sqrt(max(E, 1e-12)))``, the branch sums of
+    ``mf * inv`` in branch order, ``mag = sqrt(re*re + im*im)`` and the
+    CFAR gate input on mag (`cfar_gate`'s keywords).  Returns (mag float32,
+    above bool), each (batch, Lc)."""
+    Lc = mf.shape[-1]
+    x = iq.to(torch.float64)
+    p = x[0::2] * x[0::2] + x[1::2] * x[1::2]                 # (BR, batch, L_iq)
+    p = torch.nn.functional.pad(p, (0, max(Lc - p.shape[-1], 0)))[..., :Lc]
+    energy = running_sum_stream(p, ref_len).to(torch.float32)
+    inv = torch.reciprocal(_f32(ref_norm, mf) * torch.sqrt(energy.clamp_min(1e-12)))
+    re, im = mf[0] * inv[0], mf[1] * inv[0]
+    for b in range(1, inv.shape[0]):
+        re = re + mf[2 * b] * inv[b]
+        im = im + mf[2 * b + 1] * inv[b]
+    mag = torch.sqrt(re * re + im * im)
+    return mag, cfar_gate(mag, **cfar)[0]

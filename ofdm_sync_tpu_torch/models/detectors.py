@@ -1,9 +1,11 @@
-"""The flagship Minn-RTL detector D3 and the [A][A] detector D9 (port of
-`ofdm_sync_tpu.models.detectors.MinnRTLDetector` and `AADetector`;
-reference minn_rtl.py + ref/*.sv, sync_aa.py:421-571).
+"""Detector families of the port (port of `ofdm_sync_tpu.models.detectors`):
+the flagship Minn-RTL detector D3 (reference minn_rtl.py + ref/*.sv), the
+Zadoff-Chu time-domain matched filter D5 (reference zc.py), the ZC
+streaming CFAR detector D7 (reference zc_v2.py) and the [A][A] detector D9
+(reference sync_aa.py:421-571).
 
-Both are `nn.Module`s without parameters: their configuration is the
-system and detector dataclasses.  They take complex tensors on any device;
+All are `nn.Module`s without parameters: their configuration is the system
+and detector dataclasses.  They take complex tensors on any device;
 detection runs where the tensor lies (the CUDA kernels on a card, their
 plain versions on the CPU).
 """
@@ -12,21 +14,33 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_detect_fused
+from ofdm_sync_tpu_torch.kernels.matched_filter import (
+    MAX_TAPS,
+    matched_filter_ols,
+    matched_filter_plain,
+    planar_taps,
+)
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import minn_rtl_detect_fused
+from ofdm_sync_tpu_torch.kernels.streaming import cfar_gate
+from ofdm_sync_tpu_torch.kernels.zc_fused import zc_cfar_detect, zc_iq_cfar_detect
 from ofdm_sync_tpu_torch.models.base import DetectionEvent, DetectionResult, events_from_table
 from ofdm_sync_tpu_torch.ops import metrics as M
 from ofdm_sync_tpu_torch.ops.detect import extract_gate_events, gate_open_mask
 from ofdm_sync_tpu_torch.ops.extract import extract_frames
+from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
 from ofdm_sync_tpu_torch.params import (
     AADetectorParams,
     MinnRTLParams,
     SYS_30M72,
     SYS_AA_10M,
     SystemParams,
+    ZCParams,
+    ZCStreamingParams,
 )
 
 
@@ -102,6 +116,150 @@ class MinnRTLDetector(nn.Module):
         events = [DetectionEvent(detected_start=e["peak_index"] + p.timing_offset, **e)
                   for e in events_from_table(table0, L, gate_end_mode="close_excl")]
         return DetectionResult(events=events, gate_mask=None), frames, starts, valid
+
+
+class ZCTimeDetector(nn.Module):
+    """D5: the normalized matched filter against the PSS symbol, peak =
+    argmax of |corr| (reference zc.py:106-130)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72, params: ZCParams = ZCParams()):
+        super().__init__()
+        self.sys = sys
+        self.params = params
+
+    def reference_waveform(self) -> np.ndarray:
+        return build_pss_symbol(self.sys, self.params.pss_length, self.params.pss_root,
+                                include_cp=False)
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        corr, mag = M.zc_normalized_correlation(_as_branches(rx), self.reference_waveform())
+        peak = int(torch.argmax(mag))
+        return {
+            "corr": corr,
+            "corr_mag": mag,
+            "peak_index": peak,
+            "detected_start": max(peak - self.sys.n_fft + 1, 0),
+        }
+
+
+class ZCStreamingDetector(nn.Module):
+    """D7: the FPGA-style streaming CFAR detector (reference zc_v2.py):
+    matched filter, per-branch normalization, branch sum, then
+    ``|corr| * 2^frac >= W-window local sum * T`` with an absolute floor,
+    gate/peak events (tie 'first', unclosed gates emitted) and the strongest
+    event selected.  Event indices run over the correlation axis
+    L + R - 1; ``detected_start = max(0, peak - n_fft + 1)``.
+
+    ``mf_mode`` picks the matched filter of `detect_fused_iq`: 'kernel' =
+    kernel E (`matched_filter_ols`, CUDA tensors only), 'fft' = the plain
+    FFT convolution, 'auto' = kernel E on a CUDA tensor when the template
+    has at most `MAX_TAPS` taps, else the FFT.  The choice depends on the
+    device and the tap count only."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72, zc: ZCParams = ZCParams(),
+                 params: ZCStreamingParams = ZCStreamingParams(), max_events: int = 16,
+                 normalize: bool = True, mf_mode: str = "auto"):
+        super().__init__()
+        if mf_mode not in ("auto", "fft", "kernel"):
+            raise ValueError("mf_mode must be 'auto', 'fft' or 'kernel'")
+        self.sys = sys
+        self.zc = zc
+        self.params = params
+        self.max_events = max_events
+        self.normalize = normalize
+        self.mf_mode = mf_mode
+
+    def reference_waveform(self) -> np.ndarray:
+        return build_pss_symbol(self.sys, self.zc.pss_length, self.zc.pss_root,
+                                include_cp=False)
+
+    def _correlate(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Matched filter + (optional) per-branch normalization: the one
+        definition shared by `detect` and `detect_fused`."""
+        ref = self.reference_waveform()
+        if self.normalize:
+            corr = M.zc_normalized_correlation_per_branch(x, ref)
+        else:
+            corr = M.matched_filter(x, ref).sum(dim=0)
+        return corr, corr.abs()
+
+    def _cfar_kw(self) -> dict:
+        p = self.params
+        return dict(corr_window=p.corr_window, threshold_value=p.threshold_value,
+                    threshold_frac_bits=p.threshold_frac_bits, min_corr_mag=p.min_corr_mag)
+
+    def _result(self, table, n: int, **kw) -> DetectionResult:
+        events = [DetectionEvent(detected_start=max(0, e["peak_index"] - self.sys.n_fft + 1), **e)
+                  for e in events_from_table(table, n, gate_end_mode="close")]
+        return DetectionResult(events=events, **kw)
+
+    def detect(self, rx: torch.Tensor) -> DetectionResult:
+        """The reference path in plain PyTorch: correlation, CFAR, closed-form
+        gate/peak events.  ``result.state`` holds corr, corr_mag, local_sum,
+        above and valid."""
+        x = _as_branches(rx)
+        p = self.params
+        corr, corr_mag = self._correlate(x)
+        above, local_sum = cfar_gate(corr_mag, **self._cfar_kw())
+        table = extract_gate_events(above, corr_mag, hysteresis=p.hysteresis,
+                                    max_events=self.max_events, tie="first", emit_unclosed=True)
+        gmask = gate_open_mask(above, p.hysteresis)
+        res = self._result(table, x.shape[-1] + self.sys.n_fft - 1,
+                           gate_mask=gmask.cpu().numpy())
+        res.state = {  # type: ignore[attr-defined]
+            "corr": corr,
+            "corr_mag": corr_mag,
+            "local_sum": local_sum,
+            "above": above,
+            "valid": torch.arange(corr_mag.shape[-1], device=x.device) >= p.corr_window,
+        }
+        return res
+
+    def detect_fused(self, rx: torch.Tensor) -> DetectionResult:
+        """The plain correlation, then the fused CFAR/event detector (kernel
+        D in magnitude mode + kernel B on a card).  Same events as
+        `detect`."""
+        _corr, corr_mag = self._correlate(_as_branches(rx))
+        table = zc_cfar_detect(corr_mag, **self._cfar_kw(), hysteresis=self.params.hysteresis,
+                               max_events=self.max_events)
+        return self._result(table, corr_mag.shape[-1])
+
+    def _mf_kind(self, iq: torch.Tensor, n_taps: int) -> str:
+        mode = self.mf_mode
+        if mode == "auto":
+            return "kernel" if iq.device.type == "cuda" and n_taps <= MAX_TAPS else "fft"
+        if mode == "kernel" and iq.device.type != "cuda":
+            raise ValueError("mf_mode='kernel' needs a CUDA tensor: kernel E has no CPU mode")
+        return mode
+
+    def detect_fused_iq(self, rx: torch.Tensor) -> DetectionResult:
+        """From-IQ fused path: matched filter (kernel E or the plain FFT,
+        `mf_mode`) on the planar IQ, then one pass of kernel D in IQ mode
+        (per-branch window energy, normalization, branch sum, magnitude,
+        CFAR) and kernel B.  Needs ``normalize=True`` (the zc_v2 flavour,
+        reference zc_v2.py:486-498); otherwise it is `detect_fused`.  Same
+        events as `detect`."""
+        if not self.normalize:
+            return self.detect_fused(rx)
+        ref = np.asarray(self.reference_waveform(), np.complex64)
+        R = ref.shape[-1]
+        ref_norm = float(np.sqrt(np.sum(np.abs(ref) ** 2)))
+        # conjugate-reversed taps, planar float32 (reference zc_v2.py:249)
+        taps = np.stack([ref.real[::-1], -ref.imag[::-1]]).astype(np.float32)
+        iq = planar_rows(rx).unsqueeze(1).contiguous()  # (2*branches, 1, L)
+        Lc = iq.shape[-1] + R - 1
+        if self._mf_kind(iq, R) == "kernel":
+            mf = matched_filter_ols(iq, taps)
+        else:
+            mf = matched_filter_plain(iq, planar_taps(taps, iq.device), Lc)
+        table = zc_iq_cfar_detect(mf, iq, ref_len=R, ref_norm=ref_norm, **self._cfar_kw(),
+                                  hysteresis=self.params.hysteresis, max_events=self.max_events)
+        return self._result(table.select(0), Lc)
+
+    @staticmethod
+    def strongest(result: DetectionResult) -> DetectionEvent | None:
+        """The strongest event, not the first (reference zc_v2.py:567-576)."""
+        return result.best_by(lambda e: e.peak_value)
 
 
 class AADetector(nn.Module):

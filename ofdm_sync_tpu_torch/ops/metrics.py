@@ -1,7 +1,9 @@
-"""Detector metrics (port of the Minn-RTL and [A][A] parts of
+"""Detector metrics (port of the Minn-RTL, [A][A] and Zadoff-Chu parts of
 `ofdm_sync_tpu.ops.metrics`): the Minn-RTL adjacent-quarter metric
-(reference minn_rtl.py:583-733, ref/minn_antenna_path.sv:33-194) and the
-[A][A] streaming metric (reference sync_aa.py:421-493)."""
+(reference minn_rtl.py:583-733, ref/minn_antenna_path.sv:33-194), the
+[A][A] streaming metric (reference sync_aa.py:421-493) and the ZC matched
+filter with its normalizations (reference zc.py:106-130,
+zc_v2.py:244-271, 486-498)."""
 
 from __future__ import annotations
 
@@ -9,11 +11,13 @@ from typing import NamedTuple
 
 import torch
 
+from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full
 from ofdm_sync_tpu_torch.ops.windows import (
     delayed_product,
     exp_smooth_shift,
     running_sum_stream,
     shift_right,
+    sliding_sum_valid,
 )
 
 
@@ -120,3 +124,59 @@ def aa_metric(rx: torch.Tensor, L: int) -> AAMetricState:
     M = torch.where(valid & (R > 1e-6 * L),
                     (P.abs() ** 2 / (Rc * Rc)).clamp_max(1.0), torch.zeros_like(R))
     return AAMetricState(P=P, R=R, M=M, valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# ZC matched filter (reference zc.py:106-130, zc_v2.py:244-271)
+# ---------------------------------------------------------------------------
+
+def _reference(reference, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(reference, device=like.device).to(like.dtype)
+
+
+def matched_filter(rx: torch.Tensor, reference) -> torch.Tensor:
+    """Per-branch full correlation with the conjugate-reversed reference:
+    complex (branches, L + R - 1).  This is the plain FFT form; the CUDA
+    matched filter is `kernels.matched_filter.matched_filter_ols`."""
+    x = _as2d(rx)
+    taps = _reference(reference, x).flip(-1).conj()
+    return fft_convolve_full(x, taps.unsqueeze(0))
+
+
+def sliding_energy_full(rx: torch.Tensor, window: int) -> torch.Tensor:
+    """``conv(|x|^2, ones(window), 'full')``, the normalization denominator
+    (reference zc.py:117, zc_v2.py:266-268): ``E[m] = sum_{k=m-W+1}^{m}
+    |x[k]|^2`` for m < L + W - 1, with x zero outside [0, L).  The window
+    sums come from a float64 cumulative sum (the JAX version sums in
+    float32, so the two differ by float32 rounding)."""
+    p = _as2d(rx).abs() ** 2
+    padded = torch.nn.functional.pad(p, (window - 1, window - 1))
+    return sliding_sum_valid(padded, window)
+
+
+def _ref_norm(ref: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((ref.abs() ** 2).sum())
+
+
+def zc_normalized_correlation(rx: torch.Tensor, reference) -> tuple[torch.Tensor, torch.Tensor]:
+    """Branch-summed normalized matched-filter output and its magnitude,
+    zc.py flavour (reference zc.py:106-128): numerators and branch powers
+    are summed across branches before the normalization."""
+    x = _as2d(rx)
+    ref = _reference(reference, x)
+    num = matched_filter(x, ref).sum(dim=0)
+    power = sliding_energy_full(x, ref.shape[-1]).sum(dim=0)
+    denom = _ref_norm(ref) * torch.sqrt(power.clamp_min(0.0) + _EPS)
+    corr = num / denom
+    return corr, corr.abs()
+
+
+def zc_normalized_correlation_per_branch(rx: torch.Tensor, reference) -> torch.Tensor:
+    """zc_v2 flavour (reference zc_v2.py:486-498): normalize each branch,
+    then sum the branches.  Returns the branch-summed complex corr."""
+    x = _as2d(rx)
+    ref = _reference(reference, x)
+    num = matched_filter(x, ref)
+    power = sliding_energy_full(x, ref.shape[-1])
+    denom = _ref_norm(ref) * torch.sqrt(power.clamp_min(_EPS))
+    return (num / denom).sum(dim=0)

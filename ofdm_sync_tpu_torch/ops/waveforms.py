@@ -1,5 +1,5 @@
-"""Preamble / OFDM symbol construction used by the Minn-RTL and [A][A]
-receive chains (port of the NumPy builders of `ofdm_sync_tpu.ops.waveforms`).
+"""Preamble / OFDM symbol construction used by the Minn-RTL, [A][A] and
+Zadoff-Chu chains (port of the NumPy builders of `ofdm_sync_tpu.ops.waveforms`).
 
 Stimulus is built on the host in NumPy float64 with the reference's exact
 RNG call order, so a seed gives the same frames as the JAX package and the
@@ -151,6 +151,20 @@ def generate_base_sequence(
         raise ValueError(f"Unknown sequence type: {seq_type}")
     power = np.mean(np.abs(A) ** 2)
     return A / np.sqrt(power) if power > 0 else A
+
+
+def build_pss_symbol(
+    sys: SystemParams = SYS_30M72,
+    pss_length: int = 62,
+    pss_root: int = 25,
+    include_cp: bool = False,
+) -> np.ndarray:
+    """LTE-like PSS: a length-62 ZC on the centered subcarriers of one
+    symbol (reference zc.py:39-46, zc_v2.py:170-185)."""
+    idx = centered_subcarrier_indices(pss_length)
+    zc = generate_zadoff_chu(pss_root, pss_length)
+    symbol = spectrum_to_time_domain(allocate_subcarriers(sys.n_fft, idx, zc))
+    return add_cyclic_prefix(symbol, sys.cp_len) if include_cp else symbol
 
 
 def build_minn_rtl_preamble(

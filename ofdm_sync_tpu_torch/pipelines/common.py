@@ -1,5 +1,7 @@
-"""Stimulus + channel for one simulation run (port of `SimSetup`,
-`select_cir` and `build_setup` of `ofdm_sync_tpu.pipelines.common`)."""
+"""Shared simulation plumbing (port of `ofdm_sync_tpu.pipelines.common`
+without its plots): the stimulus + channel of one run (`SimSetup`,
+`select_cir`, `build_setup`), the receive stages after detection
+(`post_detection_chain`) and the report blocks every pipeline prints."""
 
 from __future__ import annotations
 
@@ -14,8 +16,21 @@ from ofdm_sync_tpu_torch.ops.channel import (
     compute_channel_peak_offset,
     load_measured_cir,
 )
-from ofdm_sync_tpu_torch.ops.waveforms import assemble_frame, build_random_qpsk_symbol
+from ofdm_sync_tpu_torch.ops.estimate import (
+    align_complex_gain,
+    equalize,
+    estimate_cfo_from_cp,
+    estimate_timing_offset_from_phase_slope,
+    evm_rms_db,
+    ls_channel_estimate,
+)
+from ofdm_sync_tpu_torch.ops.waveforms import (
+    assemble_frame,
+    build_random_qpsk_symbol,
+    ofdm_fft_used,
+)
 from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams
+from ofdm_sync_tpu_torch.utils import report
 
 
 @dataclass
@@ -104,3 +119,89 @@ def build_setup(
         cfo_hz=cfo_hz,
         extras={"frame_len": frame.size},
     )
+
+
+@dataclass
+class PostDetection:
+    cfo_est_hz: float
+    h_est: np.ndarray
+    slope_rad_per_bin: float
+    timing_offset_samples: float
+    gain: complex
+    evm_rms: float
+    evm_db: float
+    xhat_aligned: np.ndarray
+
+
+def post_detection_chain(setup: SimSetup, preamble_n_start_est: int) -> PostDetection:
+    """CFO estimate on the pilot CP -> compensate -> antenna mean -> LS
+    channel estimate on the pilot -> STO from the phase slope -> equalize
+    the data symbol -> EVM (reference sc.py:274-310 and its clones), on the
+    device of ``setup.rx``.  The JAX version's plots are not ported."""
+    sys = setup.sys
+    rx = setup.rx
+    n_fft, cp, fs = sys.n_fft, sys.cp_len, sys.sample_rate_hz
+    pilot_cp_start = preamble_n_start_est + n_fft
+    cfo_est = float(estimate_cfo_from_cp(rx, pilot_cp_start, n_fft, cp, fs))
+    rx_corr = apply_cfo(rx, -cfo_est, fs)
+    rx_eff = rx_corr.mean(dim=0) if rx_corr.ndim == 2 else rx_corr
+
+    def used(values: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(values, device=rx.device).to(torch.complex64)
+
+    pilot_td = rx_eff[pilot_cp_start + cp: pilot_cp_start + cp + n_fft]
+    h_est = ls_channel_estimate(ofdm_fft_used(pilot_td, sys), used(setup.pilot_used))
+    slope, sto = estimate_timing_offset_from_phase_slope(h_est, n_fft, sys.num_active)
+
+    data_cp_start = pilot_cp_start + cp + n_fft
+    data_td = rx_eff[data_cp_start + cp: data_cp_start + cp + n_fft]
+    xhat = equalize(ofdm_fft_used(data_td, sys), h_est)
+    data_used = used(setup.data_used)
+    xhat_aligned, gain = align_complex_gain(xhat, data_used)
+    evm, evm_db = evm_rms_db(xhat_aligned, data_used)
+    return PostDetection(
+        cfo_est_hz=cfo_est,
+        h_est=h_est.cpu().numpy(),
+        slope_rad_per_bin=float(slope),
+        timing_offset_samples=float(sto),
+        gain=complex(gain),
+        evm_rms=float(evm),
+        evm_db=float(evm_db),
+        xhat_aligned=xhat_aligned.cpu().numpy(),
+    )
+
+
+def print_common_header(setup: SimSetup, title: str) -> None:
+    report.banner(f"{title} - {setup.channel_desc.upper()}")
+    print(f"Transmit sequence length: {setup.tx.size} samples")
+    print(f"Receive branches: {setup.rx.shape[0] if setup.rx.ndim == 2 else 1}")
+    if setup.cir is not None:
+        print(
+            f"Applied measured channel '{setup.channel_name}' using "
+            f"{setup.cir.shape[0]} RX branch(es) taps={setup.cir.shape[1]} "
+            f"main-path offset={setup.channel_peak_offset}"
+        )
+    else:
+        print("Channel profile: Flat AWGN (no multipath)")
+
+
+def print_cfo_block(applied: float, estimated: float) -> None:
+    print("\nCarrier Frequency Offset:")
+    print(f"  Applied CFO: {applied} Hz")
+    print(f"  Estimated CFO from CP: {estimated:.2f} Hz")
+    err = abs(estimated - applied)
+    pct = err / applied * 100 if applied else float("inf")
+    print(f"  CFO error: {err:.2f} Hz ({pct:.1f}%)")
+
+
+def print_eq_block(post: PostDetection) -> None:
+    print("\nChannel Estimation & Equalization:")
+    print(
+        f"  Pilot LS phase slope: {post.slope_rad_per_bin:.6f} rad/bin "
+        f"-> timing ~ {post.timing_offset_samples:.2f} samples"
+    )
+    print(
+        f"  Post-EQ complex gain (mag, angle): "
+        f"{abs(post.gain):.3f}, {np.angle(post.gain):.3f} rad"
+    )
+    print(f"  EVM RMS: {100 * post.evm_rms:.2f}%  ({post.evm_db:.2f} dB)")

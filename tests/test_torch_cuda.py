@@ -12,7 +12,11 @@ may differ only on the threshold's knife edge (margin within 1e-5 of
 energy*T), since the two smoothing scans round in another order; kernel B
 tables must be equal.  Kernel C (the [A][A] metric) has no IIR and rounds
 each output once: every output must be bit-equal, and so must kernel B's
-captured values.
+captured values.  Kernel D (the ZC CFAR gate input) must give a bit-equal
+magnitude on integer IQ, and an above bit may differ only where
+|mag*2^frac - local*T| is within 1e-6 of local*T; kernel E (the matched
+filter) must be within 1e-5 of the output peak of a complex128 FFT
+convolution.
 """
 
 import numpy as np
@@ -21,16 +25,23 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.launches import launch_counts, reset_launch_counts  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import minn_rtl_metric_planar  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.streaming import zc_cfar_planar, zc_iq_planar  # noqa: E402
+from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
+from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import MinnRTLDetector  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     extract_gate_events,
     extract_gate_events_capture,
 )
-from ofdm_sync_tpu_torch.ops.waveforms import build_minn_rtl_preamble  # noqa: E402
+from ofdm_sync_tpu_torch.ops.waveforms import build_minn_rtl_preamble, build_pss_symbol  # noqa: E402
+from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
+from ofdm_sync_tpu_torch.params import SystemParams  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import common  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import run_fused_rx  # noqa: E402
 from ofdm_sync_tpu_torch.testing import aa_stimulus, assert_tables_equal  # noqa: E402
@@ -157,3 +168,83 @@ def test_cuda_aa_chain_matches_cpu(cuda):
     for fg, fc in zip(g.frames, c.frames):
         assert abs(fg.cfo_error_hz - fc.cfo_error_hz) < 0.5
         assert abs(fg.evm_pct - fc.evm_pct) < 0.05
+
+
+ZC = dict(corr_window=2048, threshold_value=64, threshold_frac_bits=15, min_corr_mag=0.3)
+
+
+def _zc_template(n_fft):
+    ref = np.asarray(build_pss_symbol(SystemParams(n_fft=n_fft, num_active=144, cp_len=64)),
+                     np.complex64)
+    taps = np.stack([ref.real[::-1], -ref.imag[::-1]]).astype(np.float32)
+    return ref, taps, float(np.linalg.norm(ref))
+
+
+def _assert_knife_only(above, ref_above, mag):
+    """Kernel D's above vs the plain bits: differences only on the knife edge."""
+    e_s = running_sum_stream(mag, ZC["corr_window"]) * float(ZC["threshold_value"])
+    margin = (mag * float(1 << ZC["threshold_frac_bits"]) - e_s).abs()
+    assert not ((above != ref_above) & (margin > 1e-6 * e_s.abs())).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,dtype", [(256, torch.int16), (2048, torch.float32)])
+def test_cuda_zc_metric_matches_plain(cuda, R, dtype):
+    """Kernel D in IQ mode (f32 / int16 codes) and in magnitude mode, and
+    D + B, against the plain versions on integer-valued IQ."""
+    rng = np.random.default_rng(R)
+    ref, taps, ref_norm = _zc_template(R)
+    x = np.round(8 * rng.standard_normal((4, 3, 20_000)))
+    for b, pos in ((0, 2500), (2, 11_000)):
+        for c, part in enumerate((ref.real, ref.imag, ref.real, ref.imag)):
+            x[c, b, pos: pos + R] += np.round(24 * part)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    mf = MF.matched_filter_ols(x, taps)
+    kw = dict(ref_len=R, ref_norm=ref_norm, **ZC)
+    reset_launch_counts()
+    o = ZF.zc_metric(mf, x.to(dtype), **kw)
+    mag, above = zc_iq_planar(mf, x.to(dtype), **kw)
+    assert torch.equal(o.mag, mag)
+    _assert_knife_only(o.above, above, mag)
+    table = ZF.zc_iq_cfar_detect(mf, x.to(dtype), **kw)
+    ref_table = extract_gate_events(o.above, mag, hysteresis=256, max_events=16, valid_from=2048)
+    assert_tables_equal(ref_table, table, "D + B, IQ mode")
+    for b, pos in ((0, 2500), (2, 11_000)):
+        assert any(abs(p - pos - R + 1) <= 2 for p in table.peak_idx[b][table.valid[b]].tolist())
+    assert int(table.count[1]) == 0
+    m = ZF.zc_metric(mag, **ZC)
+    _assert_knife_only(m.above, zc_cfar_planar(mag, **ZC), mag)
+    assert launch_counts()["zc_metric"] == 3 and launch_counts()["gate_events"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n", [(62, 14_335), (2048, 2 * 14_336 + 37), (2049, 5000)])
+def test_cuda_matched_filter_matches_complex128(cuda, T, n):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    x = torch.randn((4, 3, n), generator=g, device=cuda)
+    taps = torch.randn((2, T), generator=g, device=cuda)
+    reset_launch_counts()
+    y = MF.matched_filter_ols(x, taps)
+    xc = torch.complex(x[0::2].double(), x[1::2].double())
+    want = fft_convolve_full(xc, torch.complex(taps[0].double(), taps[1].double()))
+    want = torch.stack([want.real, want.imag], dim=1).reshape(y.shape)
+    assert float((y.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert launch_counts()["matched_filter_ols"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_zc_paths_match_cpu(cuda):
+    """`detect_fused` and `detect_fused_iq` on the card (kernels D, E, B)
+    give the CPU `detect`'s events on the cir1 stimulus."""
+    pss = build_pss_symbol()
+    setup = common.build_setup(pss, np.random.default_rng(0), channel_name="cir1",
+                               cir_mode="two", snr_db=10.0, cfo_hz=1000.0)
+    det = ZCStreamingDetector()
+    reset_launch_counts()
+    outs = [det.detect_fused(setup.rx.to(cuda)), det.detect_fused_iq(setup.rx.to(cuda))]
+    counts = launch_counts()
+    want = [(e.peak_index, e.detected_start) for e in det.detect(setup.rx).events]
+    for out in outs:
+        assert [(e.peak_index, e.detected_start) for e in out.events] == want
+        assert ZCStreamingDetector.strongest(out).peak_index == 3549
+    assert min(counts["zc_metric"], counts["matched_filter_ols"], counts["gate_events"]) >= 1

@@ -124,4 +124,5 @@ def test_cpu_path_counts_no_launch(rng):
     reset_launch_counts()
     F.minn_rtl_detect_fused(torch.from_numpy(_stimulus(rng, 2, 1000)), quarter_len=Q,
                             **KW, hysteresis=2)
-    assert launch_counts() == {"minn_rtl_metric": 0, "gate_events": 0, "aa_metric": 0}
+    assert launch_counts() == dict.fromkeys(
+        ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols"), 0)
