@@ -33,14 +33,12 @@ def main(argv: list[str] | None = None) -> int:
     )
     fused_rx.add_cli_args(p_rx)
     for name, help_text in _SIMULATIONS.items():
-        p = sub.add_parser(name, help=help_text)
-        p.add_argument("--device", default="cpu", help="cpu or cuda")
+        sub.add_parser(name, help=help_text)
     args = parser.parse_args(argv)
     if args.command == "fused_rx":
         fused_rx.run_cli(args)
     else:
-        importlib.import_module(f"ofdm_sync_tpu_torch.pipelines.{args.command}").main(
-            device=args.device)
+        importlib.import_module(f"ofdm_sync_tpu_torch.pipelines.{args.command}").main()
     return 0
 
 

@@ -19,12 +19,7 @@ import torch
 from torch import nn
 
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_detect_fused
-from ofdm_sync_tpu_torch.kernels.matched_filter import (
-    MAX_TAPS,
-    matched_filter_ols,
-    matched_filter_plain,
-    planar_taps,
-)
+from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import minn_rtl_detect_fused
 from ofdm_sync_tpu_torch.kernels.streaming import cfar_gate
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_cfar_detect, zc_iq_cfar_detect
@@ -148,26 +143,17 @@ class ZCStreamingDetector(nn.Module):
     ``|corr| * 2^frac >= W-window local sum * T`` with an absolute floor,
     gate/peak events (tie 'first', unclosed gates emitted) and the strongest
     event selected.  Event indices run over the correlation axis
-    L + R - 1; ``detected_start = max(0, peak - n_fft + 1)``.
-
-    ``mf_mode`` picks the matched filter of `detect_fused_iq`: 'kernel' =
-    kernel E (`matched_filter_ols`, CUDA tensors only), 'fft' = the plain
-    FFT convolution, 'auto' = kernel E on a CUDA tensor when the template
-    has at most `MAX_TAPS` taps, else the FFT.  The choice depends on the
-    device and the tap count only."""
+    L + R - 1; ``detected_start = max(0, peak - n_fft + 1)``."""
 
     def __init__(self, sys: SystemParams = SYS_30M72, zc: ZCParams = ZCParams(),
                  params: ZCStreamingParams = ZCStreamingParams(), max_events: int = 16,
-                 normalize: bool = True, mf_mode: str = "auto"):
+                 normalize: bool = True):
         super().__init__()
-        if mf_mode not in ("auto", "fft", "kernel"):
-            raise ValueError("mf_mode must be 'auto', 'fft' or 'kernel'")
         self.sys = sys
         self.zc = zc
         self.params = params
         self.max_events = max_events
         self.normalize = normalize
-        self.mf_mode = mf_mode
 
     def reference_waveform(self) -> np.ndarray:
         return build_pss_symbol(self.sys, self.zc.pss_length, self.zc.pss_root,
@@ -224,21 +210,14 @@ class ZCStreamingDetector(nn.Module):
                                max_events=self.max_events)
         return self._result(table, corr_mag.shape[-1])
 
-    def _mf_kind(self, iq: torch.Tensor, n_taps: int) -> str:
-        mode = self.mf_mode
-        if mode == "auto":
-            return "kernel" if iq.device.type == "cuda" and n_taps <= MAX_TAPS else "fft"
-        if mode == "kernel" and iq.device.type != "cuda":
-            raise ValueError("mf_mode='kernel' needs a CUDA tensor: kernel E has no CPU mode")
-        return mode
-
     def detect_fused_iq(self, rx: torch.Tensor) -> DetectionResult:
-        """From-IQ fused path: matched filter (kernel E or the plain FFT,
-        `mf_mode`) on the planar IQ, then one pass of kernel D in IQ mode
-        (per-branch window energy, normalization, branch sum, magnitude,
-        CFAR) and kernel B.  Needs ``normalize=True`` (the zc_v2 flavour,
-        reference zc_v2.py:486-498); otherwise it is `detect_fused`.  Same
-        events as `detect`."""
+        """From-IQ fused path: the matched filter (kernel E on a card) on the
+        planar IQ, then one pass of kernel D in IQ mode (per-branch window
+        energy, normalization, branch sum, magnitude, CFAR) and kernel B.
+        The template may have at most `kernels.matched_filter.MAX_TAPS`
+        taps.  Needs ``normalize=True`` (the zc_v2 flavour, reference
+        zc_v2.py:486-498); otherwise it is `detect_fused`.  Same events as
+        `detect`."""
         if not self.normalize:
             return self.detect_fused(rx)
         ref = np.asarray(self.reference_waveform(), np.complex64)
@@ -248,10 +227,7 @@ class ZCStreamingDetector(nn.Module):
         taps = np.stack([ref.real[::-1], -ref.imag[::-1]]).astype(np.float32)
         iq = planar_rows(rx).unsqueeze(1).contiguous()  # (2*branches, 1, L)
         Lc = iq.shape[-1] + R - 1
-        if self._mf_kind(iq, R) == "kernel":
-            mf = matched_filter_ols(iq, taps)
-        else:
-            mf = matched_filter_plain(iq, planar_taps(taps, iq.device), Lc)
+        mf = matched_filter_ols(iq, taps)
         table = zc_iq_cfar_detect(mf, iq, ref_len=R, ref_norm=ref_norm, **self._cfar_kw(),
                                   hysteresis=self.params.hysteresis, max_events=self.max_events)
         return self._result(table.select(0), Lc)

@@ -1,15 +1,14 @@
 """Zadoff-Chu time-domain matched-filter simulation (port of
 `ofdm_sync_tpu.pipelines.zc`; reference zc.py:57-283), without the plots.
 
-Run: ``python -m ofdm_sync_tpu_torch zc [--device cuda]``.
+Run: ``python -m ofdm_sync_tpu_torch zc``.  The detector D5 has no kernel;
+the run is plain PyTorch on the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ofdm_sync_tpu_torch.device import resolve_device
 from ofdm_sync_tpu_torch.models.detectors import ZCTimeDetector
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
 from ofdm_sync_tpu_torch.params import SYS_30M72
@@ -20,8 +19,7 @@ SNR_DB = 10.0
 CFO_HZ = 1000.0
 
 
-def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
-                   device: torch.device | str | None = None) -> dict:
+def run_simulation(channel_name: str | None, plots_subdir: str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> ZC
     matched filter -> CFO / LS EQ / EVM; prints the reference's report and
     returns its numbers.  ``plots_subdir`` must be None: plots are not
@@ -35,7 +33,7 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     # preamble = PSS symbol WITHOUT CP (reference zc.py:78)
     setup = common.build_setup(
         build_pss_symbol(sys, include_cp=False), rng, sys=sys, channel_name=channel_name,
-        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ, device=resolve_device(device))
+        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ)
 
     out = det.detect(setup.rx)
     peak_index = out["peak_index"]
@@ -69,10 +67,10 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     }
 
 
-def main(device: torch.device | str | None = None) -> None:
+def main() -> None:
     report.banner("ZADOFF-CHU SYNCHRONIZATION - DUAL CONDITION ANALYSIS")
-    run_simulation(channel_name="cir1", device=device)
-    run_simulation(channel_name=None, device=device)
+    run_simulation(channel_name="cir1")
+    run_simulation(channel_name=None)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

@@ -1,11 +1,12 @@
 """ZC streaming CFAR simulation (port of `ofdm_sync_tpu.pipelines.zc_v2`;
 reference zc_v2.py:519-787), without the plots.
 
-The run detects with `ZCStreamingDetector.detect`, the reference path in
-plain PyTorch, as the JAX pipeline does; the fused paths (`detect_fused`,
-`detect_fused_iq`, kernels D, E and B on a card) give the same events.
+The run detects on the CPU with `ZCStreamingDetector.detect`, the
+reference path in plain PyTorch, as the JAX pipeline does; the fused paths
+(`detect_fused`, `detect_fused_iq`, kernels D, E and B on a card) give the
+same events.
 
-Run: ``python -m ofdm_sync_tpu_torch zc_v2 [--device cuda]``.
+Run: ``python -m ofdm_sync_tpu_torch zc_v2``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ofdm_sync_tpu_torch.device import resolve_device
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
 from ofdm_sync_tpu_torch.params import SYS_30M72, ZCStreamingParams
@@ -24,8 +24,7 @@ SNR_DB = 10.0
 CFO_HZ = 1000.0
 
 
-def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
-                   device: torch.device | str | None = None) -> dict:
+def run_simulation(channel_name: str | None, plots_subdir: str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> CFAR
     detection, strongest event -> CFO / LS EQ / EVM; prints the reference's
     report and returns its numbers.  ``plots_subdir`` must be None: plots
@@ -39,7 +38,7 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
 
     setup = common.build_setup(
         build_pss_symbol(sys, include_cp=False), rng, sys=sys, channel_name=channel_name,
-        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ, device=resolve_device(device))
+        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ)
 
     result = det.detect(setup.rx)
     true_start = setup.true_cp_start
@@ -95,10 +94,10 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     }
 
 
-def main(device: torch.device | str | None = None) -> None:
+def main() -> None:
     report.banner("ZC V2 DETECTION - FPGA-FRIENDLY ADAPTIVE THRESHOLD")
-    run_simulation(channel_name=None, device=device)
-    run_simulation(channel_name="cir1", device=device)
+    run_simulation(channel_name=None)
+    run_simulation(channel_name="cir1")
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

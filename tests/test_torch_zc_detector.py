@@ -1,9 +1,9 @@
 """Port's ZC detectors D5 (`ZCTimeDetector`) and D7 (`ZCStreamingDetector`:
-`detect`, `detect_fused`, `detect_fused_iq`, `strongest`, `mf_mode`) vs the
-JAX package on the same complex rx.
+`detect`, `detect_fused`, `detect_fused_iq`, `strongest`) vs the JAX
+package on the same complex rx.
 
 On the CPU the port's fused paths run the plain versions of kernels D, B
-and the FFT matched filter; JAX's run its Pallas kernels in interpret mode.
+and E; JAX's run their Pallas kernels in interpret mode.
 Tolerances: peak indices, gates and detected starts equal; peak values
 within 1e-4 of the largest (JAX sums its windows in float32, the port in
 float64); the correlation magnitudes within 1e-4 of their peak.
@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from ofdm_sync_tpu.models.detectors import ZCStreamingDetector as JStreaming  # noqa: E402
 from ofdm_sync_tpu.models.detectors import ZCTimeDetector as JTime  # noqa: E402
 from ofdm_sync_tpu.params import SYS_30M72, SystemParams, ZCParams  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.matched_filter import MAX_TAPS, matched_filter_ols  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector, ZCTimeDetector  # noqa: E402
 
 SMALL = SystemParams(n_fft=256, num_active=144, cp_len=64)
@@ -96,13 +97,15 @@ def test_one_branch_and_unnormalized(rng):
 
 
 def test_no_event_and_mf_mode_rules(dets, rng):
+    """Noise gives no event.  The port has no matched-filter mode: the
+    from-IQ path always calls `matched_filter_ols`, which refuses a
+    template longer than MAX_TAPS on any device instead of taking the FFT."""
     jd, td = dets
     noise = _rx(jd.reference_waveform(), rng, positions=())
     assert not td.detect_fused_iq(torch.from_numpy(noise)).detected
     assert ZCStreamingDetector.strongest(td.detect(torch.from_numpy(noise))) is None
-    with pytest.raises(ValueError, match="CUDA"):
-        ZCStreamingDetector(SMALL, mf_mode="kernel").detect_fused_iq(torch.from_numpy(noise))
-    with pytest.raises(ValueError):
-        ZCStreamingDetector(mf_mode="mxu")
-    assert ZCStreamingDetector(SMALL, mf_mode="fft").detect_fused_iq(
-        torch.from_numpy(noise)).events == []
+    with pytest.raises(TypeError):
+        ZCStreamingDetector(SMALL, mf_mode="fft")
+    iq = torch.from_numpy(np.stack([noise.real, noise.imag], 1).reshape(4, 1, -1))
+    with pytest.raises(ValueError, match="taps"):
+        matched_filter_ols(iq.float(), np.ones(MAX_TAPS + 1, np.complex64))
