@@ -24,13 +24,27 @@ checkout, then, for each ported path:
   against the CPU `detect` and the `zc` / `zc_v2` simulations, and times
   bench.py's ZC workloads (the CFAR and from-IQ detectors at 512 x 262144
   (x 2 branches), kernel E and E -> D -> B at 64 x 262144 x 2, T = 2048)
-  against the plain versions.
+  against the plain versions and kernel E against one `conv1d` call;
+* streaming (phases 13-15): kernel A's full-metric and corr/energy modes at
+  the Minn headline size and the primed (carried-state) modes of kernels A,
+  B, C and D against their plain versions; the fused stream steps
+  (`kernels.streaming_chunked`: Minn-RTL A + B, [A][A] C + B, ZC CFAR D + B)
+  over 64 streams x 2^20 samples in chunks of 4096 and 65536, their
+  stitched tables against the one-shot tables, against the same steps with
+  the plain versions of their kernels on the card, and against the CPU; the
+  per-block latency at batch 1 (p50 of synchronized steps, and the marginal
+  cost between 128 and 1152 steps) beside the 133.3 us a 30.72 Msps stream
+  allows; the headline stream in 16 fused steps against one-shot A + B
+  (tables and final state), and each primed kernel against its plain
+  version at that step's shape.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
 failed check raises, so the exit code is non-zero and no result line is
 printed.  The last three lines of standard output are the kernels' JSON
-summary, the card's name and power limit, and the result line.  Needs
+summary (with each kernel's bound: bytes over 3.35 TB/s or flops over 67
+TFLOP/s, the larger), the card's name and power limit, and the result
+line.  Needs
 CUDA; there is no CPU path.
 """
 
@@ -43,6 +57,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -54,11 +69,17 @@ from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import build  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import streaming_chunked as ST  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
-from ofdm_sync_tpu_torch.kernels.launches import launch_counts, reset_launch_counts  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
+    launch_counts,
+    mode_launch_counts,
+    reset_launch_counts,
+)
 from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
     aa_detect_step,
     aa_metric_planar,
+    minn_rtl_corr_energy_planar,
     minn_rtl_metric_planar,
     zc_cfar_planar,
     zc_iq_planar,
@@ -66,8 +87,10 @@ from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
 from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
+    GateEvents,
     extract_gate_events,
     extract_gate_events_capture,
+    extract_gate_events_carried,
 )
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
 from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
@@ -106,6 +129,10 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_device() -> torch.device:
+    return torch.device("cuda", 0)
 
 
 def minn_stimulus(batch: int, L: int, Q: int, device, seed: int = 0, events=None):
@@ -290,6 +317,7 @@ def phase_headline(dev, card: str) -> dict:
             raise AssertionError(f"headline {name}: events in noise-only streams")
         del st, ref
         corr, above = F.minn_rtl_metric(x, quarter_len=Q, **KW)
+        gated = gated_samples(above, HYST)
         t_fused = cuda_ms(lambda: F.minn_rtl_detect_fused(x, **det))
         t_a = cuda_ms(lambda: F.minn_rtl_metric(x, quarter_len=Q, **KW))
         t_b = cuda_ms(lambda: F.gate_events(above, corr, hysteresis=HYST, max_events=8,
@@ -304,7 +332,7 @@ def phase_headline(dev, card: str) -> dict:
         torch.cuda.empty_cache()
         n = B * L
         res[name] = dict(fused_ms=t_fused, a_ms=t_a, b_ms=t_b, plain_a_ms=t_pa,
-                         plain_b_ms=t_pb, plain_ms=t_pa + t_pb)
+                         plain_b_ms=t_pb, plain_ms=t_pa + t_pb, b_gated=gated)
         log(f"  {name}: kernels A+B {t_fused:.3f} ms = {n / t_fused * 1e3:.4g} samples/s "
             f"(A {t_a:.3f} ms, B {t_b:.3f} ms); plain {t_pa + t_pb:.3f} ms = "
             f"{n / (t_pa + t_pb) * 1e3:.4g} samples/s (metric {t_pa:.3f}, events "
@@ -513,6 +541,7 @@ def phase_aa_headline(dev, card: str) -> dict:
     t_metric = cuda_ms(lambda: AF.aa_metric_planar(x, half_len=lag))
     t_c = cuda_ms(lambda: AF.aa_metric(x, half_len=lag, threshold=AA_THR))
     o = AF.aa_metric(x, half_len=lag, threshold=AA_THR)
+    b_work_capture = b_work(o.above, gated_samples(o.above, AA_HYST), n_extra=3)
     t_b = cuda_ms(lambda: F.gate_events_capture(o.above, o.track, (o.P_re, o.P_im, o.M),
                                                 hysteresis=AA_HYST, max_events=8))
     del o
@@ -525,7 +554,8 @@ def phase_aa_headline(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     N = B * n
     res = dict(fused_ms=t_fused, c_ms=t_c, b_ms=t_b, metric_mode_ms=t_metric,
-               plain_c_ms=t_pc, plain_b_ms=t_pb, plain_ms=t_pc + t_pb)
+               plain_c_ms=t_pc, plain_b_ms=t_pb, plain_ms=t_pc + t_pb,
+               b_capture_work=b_work_capture)
     log(f"  kernels C+B {t_fused:.3f} ms = {N / t_fused * 1e3:.4g} samples/s (C {t_c:.3f} ms, "
         f"B with capture {t_b:.3f} ms; C metric mode {t_metric:.3f} ms); plain "
         f"{t_pc + t_pb:.3f} ms = {N / (t_pc + t_pb) * 1e3:.4g} samples/s (metric {t_pc:.3f}, "
@@ -745,7 +775,7 @@ def phase_zc_chain(dev) -> dict:
     for label, channel, _ in ZC_CHAIN_CASES:
         setups[label] = build_setup(build_pss_symbol(SYS_30M72), np.random.default_rng(0),
                                     channel_name=channel, cir_mode="two", snr_db=10.0,
-                                    cfo_hz=1000.0)
+                                    cfo_hz=1000.0, device="cpu")
     reset_launch_counts()
     runs = {label: (det.detect_fused(s.rx.to(dev)), det.detect_fused_iq(s.rx.to(dev)))
             for label, s in setups.items()}
@@ -753,8 +783,8 @@ def phase_zc_chain(dev) -> dict:
     counts = launch_counts()
     for label, channel, want_peak in ZC_CHAIN_CASES:
         cpu = det.detect(setups[label].rx)
-        v2 = quiet(zc_v2.run_simulation, channel)
-        t = quiet(zc.run_simulation, channel)
+        v2 = quiet(zc_v2.run_simulation, channel, device=dev)
+        t = quiet(zc.run_simulation, channel, device=dev)
         for name, res in zip(("detect_fused", "detect_fused_iq"), runs[label]):
             got = [(e.peak_index, e.detected_start) for e in res.events]
             if got != [(e.peak_index, e.detected_start) for e in cpu.events]:
@@ -836,6 +866,12 @@ def phase_zc_headline(dev, card: str) -> dict:
     hm = MF.planar_taps(taps, dev)
     res["e_ms"] = cuda_ms(lambda: MF.matched_filter_ols(xm, taps))
     res["plain_e_ms"] = cuda_ms(lambda: MF.matched_filter_plain(xm, hm, n + R - 1))
+    res["library_e_ms"], res["library_e_err"] = library_conv_ms(
+        xm, hm, MF.matched_filter_ols(xm, taps))
+    if res["library_e_err"] > MF_RTOL:
+        raise AssertionError(f"conv1d vs kernel E: {res['library_e_err']} of the peak")
+    res["e_work"] = e_work(xm, R, n + R - 1)
+    torch.cuda.empty_cache()
 
     def e2e():
         return ZF.zc_iq_cfar_detect(MF.matched_filter_ols(xm, taps), xm, **kw)
@@ -854,8 +890,699 @@ def phase_zc_headline(dev, card: str) -> dict:
     log(f"  kernel E {res['e_ms']:.3f} ms = {N / res['e_ms'] * 1e3:.4g} samples/s, plain FFT "
         f"{res['plain_e_ms']:.3f} ms; E->D->B {res['e2e_ms']:.3f} ms = "
         f"{N / res['e2e_ms'] * 1e3:.4g} samples/s, plain {res['plain_e2e_ms']:.3f} ms "
-        f"({Bm} x {n} x 2 branches, T = {R}); card {card}")
+        f"({Bm} x {n} x 2 branches, T = {R}); one conv1d call (cuDNN, TF32 off) "
+        f"{res['library_e_ms']:.3f} ms; card {card}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Streaming: the carried-state modes of kernels A-D (phases 13-15)
+# ---------------------------------------------------------------------------
+
+#: kernel A's smoothing register and smooth output vs the plain version,
+#: relative to max(1, |plain|max): the chunk-parallel scan (truncated below
+#: 2^-45, reassociated) and the plain recurrence round in another order
+SMOOTH_RTOL = 1e-5
+#: the emitted register vs the one-shot smooth[:, -1] or the plain version,
+#: relative to max(1, |ref|) (a register that decayed toward zero differs in
+#: its denormals)
+CARRY_RTOL = 1e-5
+#: the streaming cells: 64 streams x 2^20 samples x 2 branches (1 GiB f32)
+STREAM = dict(batch=64, n=1 << 20, chunks=(4096, 65536))
+#: a live 30.72 Msps stream delivers a 4096-sample block every 133.3 us
+BLOCK_BUDGET_US = 4096 / 30.72e6 * 1e6
+#: H100 SXM data-sheet peaks at 700 W (HBM3, FP32 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+MINN_PARAMS = dict(quarter_len=512, **KW, hysteresis=HYST, max_events=8, tie="last")
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of bytes over
+    the HBM rate and flops over the FP32 rate, and which one it is."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def a_work(batch, L, C, itemsize, out_bytes, hist_len=0, scan=True):
+    """Kernel A: each input sample read once (and the history), each output
+    written once; ~4C + 12 flops per sample (2C products, 2C sums, window
+    differences, smoothing step, threshold)."""
+    nbytes = batch * L * (C * itemsize + out_bytes) + C * batch * hist_len * 4 + 8 * batch
+    return nbytes, batch * L * (4 * C + (12 if scan else 6))
+
+
+def b_work(above, gated, E=8, n_extra=0):
+    """Kernel B: above read once, track (and the captured channels) read
+    only at the gated samples this run's data has, the table written once."""
+    batch, L = above.shape
+    nbytes = (batch * L + 4 * int(gated) * (1 + n_extra) + batch * E * (2 + 16 + 4 * n_extra)
+              + 8 * batch)
+    return nbytes, 2 * batch * L + 10 * int(gated)
+
+
+def c_work(batch, L, C, itemsize, out_bytes, hist_len=0):
+    """Kernel C: each sample read once, each output written once; per
+    sample per branch 12 flops of products and sums, ~10 more for the
+    windows, track and M."""
+    nbytes = batch * L * (C * itemsize + out_bytes) + C * batch * hist_len * 4
+    return nbytes, batch * L * (6 * C + 10)
+
+
+def d_mag_work(batch, L, hist_len=0):
+    return batch * L * (4 + 1) + batch * hist_len * 4, batch * L * 8
+
+
+def d_iq_work(batch, Lc, L_iq, C, itemsize):
+    return batch * (Lc * (C * 4 + 5) + L_iq * C * itemsize), batch * Lc * (4 * C + 12)
+
+
+def e_work(x, T, out_len):
+    """Kernel E's function, a full convolution, at the least work it needs
+    (not the direct form's 8T flops per output): its bytes, and the flops of
+    an FFT convolution over N = the next power of two >= out_len, 5 N log2 N
+    per complex transform, a forward and an inverse transform per stream,
+    one for the taps, and a 6N-flop complex product per stream."""
+    C, batch, L = x.shape
+    streams = (C // 2) * batch
+    log2n = (out_len - 1).bit_length()
+    fft = 5.0 * (1 << log2n) * log2n
+    flops = (2 * streams + 1) * fft + 6.0 * (1 << log2n) * streams
+    return x.numel() * 4 + C * batch * out_len * 4 + 8 * T, flops
+
+
+def gated_samples(above, hysteresis) -> int:
+    """Samples inside a gate (where kernel B reads the track)."""
+    from ofdm_sync_tpu_torch.ops.detect import gate_open_mask
+
+    return int(gate_open_mask(above, hysteresis).sum())
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| / max(1, |ref|max)."""
+    if not ref.numel():
+        return 0.0
+    return float((out.double() - ref.double()).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def check_knife(above, ref, smooth, energy, what: str) -> int:
+    """Above bits that differ from the plain ones must lie on the threshold's
+    knife edge (the plain margin within KNIFE_RTOL of energy*T)."""
+    diff = above != ref
+    if not bool(diff.any()):
+        return 0
+    e_s = energy * float(KW["threshold_value"])
+    margin = (smooth * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    if (diff & ~(margin <= KNIFE_RTOL * e_s.abs())).any():
+        raise AssertionError(f"{what}: above differs off the knife edge at "
+                             f"{diff.nonzero()[:5].tolist()}")
+    log(f"  {what}: {int(diff.sum())} above bit(s) differ on the knife edge")
+    return int(diff.sum())
+
+
+def gate_carry(batch: int, base: int, g: torch.Generator, dev, h: int):
+    """Random gate_init rows: a gate continuing into the chunk ([base - k,
+    1], k <= h) or none ([-1, 0])."""
+    la = base - torch.randint(1, h + 1, (batch,), generator=g, device=dev)
+    flag = torch.randint(0, 2, (batch,), generator=g, device=dev)
+    return torch.stack([torch.where(flag > 0, la, -1), flag], dim=1).to(torch.int32)
+
+
+def phase_stream_kernels(dev, card: str) -> dict:
+    B, L, Q = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"]
+    log(f"== phase 13: kernel A's full-metric and corr/energy modes at {B} x {L} x 2, Q={Q}; "
+        "the primed modes of A, B, C, D vs plain")
+    res, errs = {}, {"full": 0.0, "corr_energy": 0.0, "primed_a": 0.0, "primed_c": 0.0,
+                     "primed_d": 0.0}
+    x32, _ = minn_stimulus(B, L, Q, dev)
+    for name in ("f32", "i16"):
+        x = x32 if name == "f32" else x32.to(torch.int16)
+        st = F.minn_rtl_metric_planar_fused(x, quarter_len=Q, **KW)
+        ref = plain_metric(x, Q)
+        torch.cuda.synchronize()
+        errs["full"] = max(errs["full"], rel_err(st.corr_positive, ref.corr_positive))
+        if errs["full"] > CORR_RTOL:
+            raise AssertionError(f"full {name}: corr err {errs['full']} > {CORR_RTOL}")
+        check_equal(st.energy_total, ref.energy_total, f"full {name} energy")
+        if rel_err(st.smooth_metric, ref.smooth_metric) > SMOOTH_RTOL:
+            raise AssertionError(f"full {name}: smooth differs by more than {SMOOTH_RTOL}")
+        check_knife(st.above_threshold, ref.above_threshold, ref.smooth_metric,
+                    ref.energy_total, f"full {name}")
+        corr, energy = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=Q)
+        errs["corr_energy"] = max(errs["corr_energy"], rel_err(corr, ref.corr_positive))
+        if errs["corr_energy"] > CORR_RTOL:
+            raise AssertionError(f"corr/energy {name}: corr err {errs['corr_energy']}")
+        check_equal(energy, ref.energy_total, f"corr/energy {name} energy")
+        del st, ref, corr, energy
+        torch.cuda.empty_cache()
+        res[f"full_{name}_ms"] = cuda_ms(lambda: F.minn_rtl_metric_planar_fused(
+            x, quarter_len=Q, **KW))
+        res[f"corr_energy_{name}_ms"] = cuda_ms(lambda: F.minn_rtl_corr_energy_planar_fused(
+            x, quarter_len=Q))
+        torch.cuda.empty_cache()
+    xp = F._planar_view(x32)
+    res["plain_full_ms"] = cuda_ms(lambda: minn_rtl_metric_planar(xp, quarter_len=Q, **KW))
+    res["plain_corr_energy_ms"] = cuda_ms(lambda: minn_rtl_corr_energy_planar(xp, quarter_len=Q))
+    del x32, xp
+    torch.cuda.empty_cache()
+    log(f"  full metric f32 {res['full_f32_ms']:.3f} ms, int16 {res['full_i16_ms']:.3f} ms "
+        f"(plain {res['plain_full_ms']:.3f}); corr/energy f32 {res['corr_energy_f32_ms']:.3f} "
+        f"ms, int16 {res['corr_energy_i16_ms']:.3f} ms (plain {res['plain_corr_energy_ms']:.3f});"
+        f" card {card}")
+
+    # primed modes at small shapes: random base, history, register, gate carry
+    g = torch.Generator(device=dev).manual_seed(13)
+    for Qs, batch, n, dt in ((64, 5, 10_000, torch.float32), (512, 3, 3 * 4096 + 5, torch.int16),
+                             (512, 4, 2 * 4096, torch.float32)):
+        base = int(torch.randint(0, 1 << 30, (1,), generator=g, device=dev))
+        x, _ = minn_stimulus(batch, n, Qs, dev, seed=n, events=[(0, 300), (batch - 1, n // 2)])
+        x = x.to(dt)
+        hist, _ = minn_stimulus(batch, 1536, Qs, dev, seed=n + 1, events=[])
+        carry = torch.rand(batch, generator=g, device=dev) * 1e4
+        kw = dict(quarter_len=Qs, **KW, base_index=base, hist_init=hist, carry_init=carry)
+        corr, above, carry_out = F.minn_rtl_metric(x, **kw, emit_state=True)
+        full = F.minn_rtl_metric_planar_fused(x, **kw)
+        ref = minn_rtl_metric_planar(F._planar_view(x), quarter_len=Qs, **KW, base_index=base,
+                                     hist_init=F._planar_view(hist), carry_init=carry)
+        what = f"primed A Q={Qs} batch={batch} n={n} {str(dt)[6:]} base={base}"
+        torch.cuda.synchronize()
+        errs["primed_a"] = max(errs["primed_a"], rel_err(corr, ref.corr_positive))
+        if (errs["primed_a"] > CORR_RTOL
+                or rel_err(full.smooth_metric, ref.smooth_metric) > SMOOTH_RTOL):
+            raise AssertionError(f"{what}: corr or smooth differs")
+        check_equal(full.energy_total, ref.energy_total, f"{what} energy")
+        check_knife(above, ref.above_threshold, ref.smooth_metric, ref.energy_total, what)
+        if not torch.allclose(carry_out, ref.smooth_metric[:, -1], rtol=CARRY_RTOL,
+                              atol=CARRY_RTOL):
+            raise AssertionError(f"{what}: carry_out {carry_out.tolist()} != "
+                                 f"{ref.smooth_metric[:, -1].tolist()}")
+        c, e = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=Qs, hist_init=hist)
+        check_equal(e, ref.energy_total, f"{what} corr/energy energy")
+        if rel_err(c, ref.corr_positive) > CORR_RTOL:
+            raise AssertionError(f"{what}: corr/energy corr differs")
+        # kernel B carried, with and without capture, on the plain gate input
+        h = HYST if Qs == 64 else 40
+        gi = gate_carry(batch, base, g, dev, h)
+        for tie, emit, Lg in (("last", True, base + n - 100), ("first", False, base + n + 500)):
+            bkw = dict(hysteresis=h, max_events=8, valid_from=3 * Qs - 1, tie=tie,
+                       emit_unclosed=emit, base_index=base, stream_len_global=Lg, gate_init=gi)
+            above_p, track = ref.above_threshold.contiguous(), ref.corr_positive.contiguous()
+            table, gate_out = F.gate_events(above_p, track, **bkw, emit_state=True)
+            rt, _, rg = extract_gate_events_carried(above_p, track, (), **bkw)
+            assert_tables_equal(rt, table, f"{what} B carried tie={tie}")
+            check_equal(gate_out, rg, f"{what} B gate_out")
+            extras = (track, ref.smooth_metric.contiguous(), ref.energy_total.contiguous())
+            table, cap, gate_out = F.gate_events_capture(above_p, track, extras, **bkw,
+                                                         emit_state=True)
+            rt, rcap, rg = extract_gate_events_carried(above_p, track, extras, **bkw)
+            assert_tables_equal(rt, table, f"{what} B carried capture tie={tie}")
+            check_equal(cap, rcap, f"{what} B captured")
+            check_equal(gate_out, rg, f"{what} B capture gate_out")
+        log(f"  {what}: ok")
+
+    # kernel C primed (bit-equal on integer stimulus) and D primed magnitude
+    for lag, batch, n, dt in ((128, 5, 10_000, torch.float32),
+                              (512, 3, 3 * 4096 + 5, torch.int16)):
+        base = int(torch.randint(0, 1 << 30, (1,), generator=g, device=dev))
+        x = aa_stimulus(batch, n, lag, dev, seed=lag + n, events=[(0, 100), (batch - 1, n // 2)])
+        hist = aa_stimulus(batch, 2 * lag + 128, lag, dev, seed=n, events=[(0, 200)])
+        o = AF.aa_metric(x.to(dt), half_len=lag, threshold=AA_THR, base_index=base,
+                         hist_init=hist)
+        m = AF.aa_metric(x.to(dt), half_len=lag, base_index=base, hist_init=hist)
+        st = aa_metric_planar(F._planar_view(x), lag, base_index=base, hist=F._planar_view(hist))
+        track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, AA_THR, base)
+        what = f"primed C L={lag} batch={batch} n={n} {str(dt)[6:]} base={base}"
+        for name, out, ref in (("P_re", o.P_re, st.P_re), ("P_im", o.P_im, st.P_im),
+                               ("track", o.track, track), ("M", o.M, M), ("above", o.above, above),
+                               ("metric R", m.R, st.R)):
+            errs["primed_c"] = max(errs["primed_c"], check_equal(out, ref, f"{what} {name}"))
+        gi = gate_carry(batch, base, g, dev, AA_HYST)
+        kw = dict(half_len=lag, threshold=AA_THR, hysteresis=AA_HYST, emit_unclosed=True,
+                  base_index=base, stream_len_global=base + n)
+        table, P, Mpk, gate_out = AF.aa_detect_fused(x.to(dt), **kw, emit_state=True,
+                                                     shard_init=(hist, gi))
+        rt, rcap, rg = extract_gate_events_carried(
+            above, track, (st.P_re, st.P_im, M), hysteresis=AA_HYST, max_events=8, tie="first",
+            emit_unclosed=True, base_index=base, stream_len_global=base + n, gate_init=gi)
+        assert_tables_equal(rt, table, f"{what} C + B")
+        check_equal(P, rcap[:, :2], f"{what} P_at_peak")
+        check_equal(Mpk, rcap[:, 2], f"{what} M_at_peak")
+        check_equal(gate_out, rg, f"{what} gate_out")
+        log(f"  {what}: ok (bit-equal)")
+    for batch, n in ((3, 14_335), (5, 2 * 16_384 + 37)):
+        base = int(torch.randint(0, 1 << 30, (1,), generator=g, device=dev))
+        mag = dyadic(mag_stimulus(batch, n, dev, seed=n, events=[(0, 700), (batch - 1, n - 300)]))
+        hist = dyadic(mag_stimulus(batch, 2048, dev, seed=n + 1, events=[(0, 2040)]))
+        o = ZF.zc_metric(mag, **ZC_CFAR, base_index=base, hist_init=hist)
+        ref = zc_cfar_planar(mag, **ZC_CFAR, base_index=base, hist=hist)
+        what = f"primed D batch={batch} n={n} base={base}"
+        check_equal(o.above, ref, f"{what} above")
+        gi = gate_carry(batch, base, g, dev, 256)
+        table, gate_out = ZF.zc_cfar_detect(mag, **ZC_CFAR, base_index=base,
+                                            stream_len_global=base + n - 7,
+                                            shard_init=(hist, gi), emit_state=True)
+        rt, _, rg = extract_gate_events_carried(ref, mag, (), **ZC_EVENTS, base_index=base,
+                                                stream_len_global=base + n - 7, gate_init=gi)
+        assert_tables_equal(rt, table, f"{what} D + B")
+        check_equal(gate_out, rg, f"{what} gate_out")
+        log(f"  {what}: ok ({int(table.count.sum())} events)")
+    return {"res": res, "errs": errs}
+
+
+def dyadic(x, scale: float = 1024.0):
+    """x rounded to multiples of 1/scale: every window sum of it is exact."""
+    return (x * scale).round_().div_(scale)
+
+
+def cpu_table(t):
+    """A table with its fields on the host (one copy per field)."""
+    return type(t)(*(f.cpu() for f in t))
+
+
+def run_stream(step, state, x, chunk: int, **kw):
+    """Drive a fused step over x in chunks; returns (state, host tables,
+    per-chunk extras on the host)."""
+    tables, extras = [], []
+    for o in range(0, x.shape[-1], chunk):
+        state, out = step(state, x[..., o: o + chunk].contiguous(), **kw)
+        if not isinstance(out, GateEvents):
+            out, P, M = out
+            extras.append((P.cpu(), M.cpu()))
+        tables.append(cpu_table(out))
+    return state, tables, extras
+
+
+def stitched(tables, extras, b: int, n: int, h: int, tie_last: bool) -> list[tuple]:
+    """Stream b's chunk tables stitched into one event list of (start,
+    close, peak index, peak value, closed, captured P_re, P_im, M) tuples."""
+    ex = [{"p_re": P[b, 0], "p_im": P[b, 1], "m": M[b]} for P, M in extras] if extras else None
+    got = ST.stitch_chunk_tables([t.select(b) for t in tables], hysteresis=h, stream_end=n,
+                                 emit_unclosed=True, tie_last=tie_last, extras_list=ex)
+    return [(e["start"], e["close"], e["pidx"], e["pval"], e["closed"],
+             None if ex is None else tuple(float(e["extras"][k]) for k in ("p_re", "p_im", "m")))
+            for e in got]
+
+
+def table_events(ref, b: int, ref_cap=None) -> list[tuple]:
+    """Stream b of a one-shot host table (and its captures) as `stitched`'s
+    tuples."""
+    return [(int(ref.gate_start[b, e]), int(ref.gate_close[b, e]), int(ref.peak_idx[b, e]),
+             float(ref.peak_value[b, e]), bool(ref.closed[b, e]),
+             None if ref_cap is None else tuple(float(ref_cap[b, i, e]) for i in range(3)))
+            for e in range(int(ref.count[b]))]
+
+
+def compare_events(have: list, want: list, h: int, what: str, knife=None) -> list[int]:
+    """Per stream, the event lists must be equal.  An event that differs
+    passes only where its gate span (start - h .. close) holds a sample of
+    its stream on the threshold's knife edge (`knife`: stream -> sorted
+    sample indices); returns the streams so excused."""
+    excused = []
+    none = np.empty(0, np.int64)
+    for b, (hv, wt) in enumerate(zip(have, want)):
+        if hv == wt:
+            continue
+        edges = none if knife is None else knife.get(b, none)
+        for ev in sorted(set(hv) ^ set(wt)) or [None]:
+            i = 0 if ev is None else int(np.searchsorted(edges, ev[0] - h))
+            if ev is None or i >= len(edges) or edges[i] > ev[1]:
+                raise AssertionError(f"{what}: stream {b} {hv[:4]} != {wt[:4]}: event {ev} "
+                                     "has no knife-edge sample in its gate span")
+        excused.append(b)
+    if excused:
+        log(f"  {what}: streams {excused} differ only in gates that hold a knife-edge sample")
+    return excused
+
+
+def minn_knife(st, valid_from: int) -> dict:
+    """Stream -> sorted indices (from valid_from on) of a full metric's
+    samples on the threshold's knife edge (the margin within KNIFE_RTOL of
+    energy*T)."""
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    edge = (margin <= KNIFE_RTOL * e_s.abs()) & (st.energy_total > 0)
+    edge[:, :valid_from] = False
+    b, idx = (t.cpu().numpy() for t in edge.nonzero(as_tuple=True))
+    return {int(s): idx[b == s] for s in np.unique(b)}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the kernel wrappers run their plain versions on the card's
+    tensors as they do on the CPU's, so a stream step runs unchanged with no
+    kernel; a launch counted inside fails the run."""
+    before = launch_counts()
+    with contextlib.ExitStack() as stack:
+        for mod in (F, AF, ZF):
+            stack.enter_context(mock.patch.object(mod, "check_kernel_device", lambda *t: "cpu"))
+        yield
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError(f"a kernel ran in a plain run: {before} -> {launch_counts()}")
+
+
+def check_stream(name, step, init, x, ref, h: int, kw: dict, *, tie_last=True, ref_cap=None,
+                 knife=None):
+    """Drive a fused step over x in each chunk size of STREAM: per stream,
+    the stitched tables equal the one-shot `ref` (and its captures).  At the
+    largest chunk the same step with the plain versions of its kernels, on
+    the card, gives the same stitched tables, the same gate carry and (Minn)
+    the smoothing register within CARRY_RTOL.  Returns (the kernel runs'
+    final states by chunk size, a summary)."""
+    n, B = x.shape[-1], ref.count.shape[0]
+    ref, ref_cap = cpu_table(ref), None if ref_cap is None else ref_cap.cpu()
+    want = [table_events(ref, b, ref_cap) for b in range(B)]
+    states, out = {}, {}
+    for chunk in STREAM["chunks"]:
+        state, tables, extras = run_stream(step, init(), x, chunk, **kw)
+        have = [stitched(tables, extras, b, n, h, tie_last) for b in range(B)]
+        excused = compare_events(have, want, h, f"{name} chunks of {chunk} vs one-shot", knife)
+        out[f"{name}_knife_streams_{chunk}"] = len(excused)
+        states[chunk] = state
+        log(f"  {name}, chunks of {chunk}: stitched == one-shot for {B - len(excused)} of {B} "
+            f"streams ({sum(map(len, want))} events{'' if ref_cap is None else ', P and M'})")
+    with plain_kernels():
+        plain, ptables, pextras = run_stream(step, init(), x, chunk, **kw)
+    hp = [stitched(ptables, pextras, b, n, h, tie_last) for b in range(B)]
+    excused = compare_events(have, hp, h, f"{name} chunks of {chunk} vs the plain chain", knife)
+    keep = torch.ones(B, dtype=torch.bool)
+    keep[excused] = False
+    check_equal(state.gate.cpu()[keep], plain.gate.cpu()[keep], f"{name} gate vs the plain chain")
+    if hasattr(state, "carry"):
+        err = float(((state.carry - plain.carry).abs() / plain.carry.abs().clamp_min(1.0)).max())
+        if err > CARRY_RTOL:
+            raise AssertionError(f"{name}: carry vs the plain chain, rel err {err}")
+        out[f"{name}_carry_rel_err_plain"] = err
+    out[f"{name}_knife_streams_plain"] = len(excused)
+    log(f"  {name}, chunks of {chunk}: kernels == the plain chain on the card for "
+        f"{B - len(excused)} of {B} streams (tables and gate carry)")
+    return states, out
+
+
+def phase_streams(dev, card: str) -> dict:
+    B, n = STREAM["batch"], STREAM["n"]
+    Q = MINN_PARAMS["quarter_len"]
+    log(f"== phase 14: fused streams, {B} x {n} x 2 branches in chunks of "
+        f"{' and '.join(map(str, STREAM['chunks']))}, card vs one-shot, the plain chain and CPU")
+    mp = ST.MinnRTLStreamParams(**MINN_PARAMS)
+    # preambles inside chunks and across 4096- and 65536-sample seams
+    minn_ev = [(b, p) for b in range(0, B, 3) for p in (4096 * (7 + b) - 2 * Q, 65536 * 3 - Q,
+                                                         n // 2 + 1000 * b) if p + 5 * Q <= n]
+    aa_ev = [(b, p) for b in range(1, B, 4) for p in (4096 * (9 + b) - 512, 65536 * 5 - 300)
+             if p + 1024 <= n]
+    zc_ev = [(b, p) for b in range(2, B, 5) for p in (4096 * (11 + b) - 3, 65536 * 7 + 1)
+             if p + 5 <= n]
+    out = {}
+    steps = 3 * sum(n // chunk for chunk in STREAM["chunks"])
+    reset_launch_counts()
+
+    # Minn-RTL: kernels A + B primed, against the one-shot full metric + B
+    x, _ = minn_stimulus(B, n, Q, dev, seed=14, events=minn_ev)
+    st, ref = F.minn_rtl_detect_planar_fused(x, quarter_len=Q, **KW, hysteresis=HYST)
+    ref_u = F.minn_rtl_detect_fused(x, quarter_len=Q, **KW, hysteresis=HYST, emit_unclosed=True)
+    c, e = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=Q)
+    check_equal(e, st.energy_total, "stream corr/energy energy")
+    if rel_err(c, st.corr_positive) > CORR_RTOL:
+        raise AssertionError("stream corr/energy: corr differs from the full metric")
+    del c, e
+    states, o = check_stream(
+        "minn", ST.minn_rtl_fused_stream_step,
+        lambda: ST.minn_rtl_fused_stream_init(mp, B, device=dev), x, ref_u, HYST,
+        dict(params=mp), knife=minn_knife(st, 3 * Q - 1))
+    out.update(o)
+    for chunk, state in states.items():
+        cerr = float(((state.carry - st.smooth_metric[:, -1]).abs()
+                      / st.smooth_metric[:, -1].abs().clamp_min(1.0)).max())
+        if cerr > CARRY_RTOL:
+            raise AssertionError(f"minn chunks of {chunk}: carry rel err {cerr} > {CARRY_RTOL}")
+        out[f"minn_carry_rel_err_{chunk}"] = cerr
+    log(f"  minn: {int(ref_u.count.sum())} events ({int(ref.count.sum())} closed); carry vs "
+        f"one-shot smooth[:, -1], rel err {[out[f'minn_carry_rel_err_{c}'] for c in states]}")
+    del st, ref, ref_u, states
+    minn_small = x[:, :2, : 1 << 16].contiguous()
+    del x
+    torch.cuda.empty_cache()
+
+    # [A][A]: kernels C + B-capture primed, bit-equal to the one-shot C + B
+    lag = AA_HEADLINE["lag"]
+    x = aa_stimulus(B, n, lag, dev, seed=15, events=aa_ev)
+    rt, rP, rM = AF.aa_detect_fused(x, half_len=lag, emit_unclosed=True)
+    _, o = check_stream("aa", ST.aa_fused_stream_step,
+                        lambda: ST.aa_fused_stream_init(lag, B, device=dev), x, rt, AA_HYST,
+                        dict(half_len=lag), tie_last=False,
+                        ref_cap=torch.cat([rP, rM[:, None]], dim=1))
+    out.update(o)
+    aa_small = x[:, :2, : 1 << 16].contiguous()
+    del x, rt, rP, rM
+    torch.cuda.empty_cache()
+
+    # ZC CFAR: kernels D (magnitude) + B primed on dyadic magnitudes
+    W = ZC_CFAR["corr_window"]
+    mag = dyadic(mag_stimulus(B, n, dev, seed=16, events=zc_ev))
+    _, o = check_stream("zc", ST.zc_cfar_fused_stream_step,
+                        lambda: ST.zc_cfar_fused_stream_init(W, B, device=dev), mag,
+                        ZF.zc_cfar_detect(mag, **ZC_CFAR), 256, ZC_CFAR, tie_last=False)
+    out.update(o)
+    zc_small = mag[:2, : 1 << 16].contiguous()
+    del mag
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    modes = mode_launch_counts()
+    log(f"  launches: {counts}; modes {modes}")
+    if min(modes.get("minn_rtl_metric/primed", 0), modes.get("gate_events/primed", 0),
+           modes.get("aa_metric/primed", 0), modes.get("zc_metric/primed", 0)) < 1:
+        raise AssertionError(f"a primed kernel of the streams was not launched: {modes}")
+    if counts["minn_rtl_metric"] + counts["aa_metric"] + counts["zc_metric"] < steps or \
+            counts["gate_events"] < steps:
+        raise AssertionError(f"fewer kernel launches than the {steps} stream steps: {counts}")
+
+    # the same streams at 2 x 2^16 on the CPU equal the card, chunk by chunk
+    cases = (("minn", ST.minn_rtl_fused_stream_step,
+              lambda d: ST.minn_rtl_fused_stream_init(mp, 2, device=d), minn_small,
+              dict(params=mp)),
+             ("aa", ST.aa_fused_stream_step, lambda d: ST.aa_fused_stream_init(lag, 2, device=d),
+              aa_small, dict(half_len=lag)),
+             ("zc", ST.zc_cfar_fused_stream_step,
+              lambda d: ST.zc_cfar_fused_stream_init(W, 2, device=d), zc_small, ZC_CFAR))
+    for name, step, init, xs, kw in cases:
+        sg, tg, eg = run_stream(step, init(dev), xs, 4096, **kw)
+        sc, tc, ec = run_stream(step, init("cpu"), xs.cpu(), 4096, **kw)
+        for i, (a, b) in enumerate(zip(tg, tc)):
+            assert_tables_equal(b, a, f"{name} card vs cpu, chunk {i}")
+        for (Pa, Ma), (Pb, Mb) in zip(eg, ec):
+            check_equal(Pa, Pb, f"{name} P card vs cpu")
+            check_equal(Ma, Mb, f"{name} M card vs cpu")
+        check_equal(sg.gate.cpu(), sc.gate, f"{name} gate carry card vs cpu")
+        if name == "minn" and not torch.allclose(sg.carry.cpu(), sc.carry, rtol=CARRY_RTOL,
+                                                 atol=CARRY_RTOL):
+            raise AssertionError("minn: carry card vs cpu")
+        log(f"  {name} at 2 x {1 << 16}: card == cpu over {len(tg)} chunks")
+    return {"counts": counts, "modes": modes, "steps": steps, **out}
+
+
+def marginal_us(step, make_state, chunks, k0: int = 128, k1: int = 1152) -> float:
+    """Per-chunk cost from the difference of two run lengths, one
+    synchronize at each end (bench.py's method, never wall / K)."""
+    def run(k):
+        s = make_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(k):
+            s = step(s, chunks[i])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(k0)  # warm
+    return (run(k1) - run(k0)) / (k1 - k0) * 1e6
+
+
+def phase_latency(dev, card: str) -> dict:
+    log(f"== phase 15: per-block latency at batch 1 (2 branches, 4096-sample blocks, budget "
+        f"{BLOCK_BUDGET_US:.1f} us at 30.72 Msps) and streaming throughput")
+    Q = MINN_PARAMS["quarter_len"]
+    mp = ST.MinnRTLStreamParams(**MINN_PARAMS)
+    nblk = 1152
+    x, _ = minn_stimulus(1, 4096 * nblk, Q, dev, seed=15,
+                         events=[(0, 4096 * k + 1000) for k in range(3, nblk, 40)])
+    fused_chunks = [x[..., 4096 * i: 4096 * (i + 1)].contiguous() for i in range(nblk)]
+    plain_chunks = [F._planar_view(c)[0] for c in fused_chunks]  # (2, 2, 4096) views
+    res = {}
+    fused = lambda s, c: ST.minn_rtl_fused_stream_step(s, c, params=mp)[0]  # noqa: E731
+    plain = lambda s, c: ST.minn_rtl_stream_step(s, c, params=mp)  # noqa: E731
+    for name, step, init, chunks in (
+            ("fused", fused, lambda: ST.minn_rtl_fused_stream_init(mp, 1, device=dev),
+             fused_chunks),
+            ("plain", plain, lambda: ST.minn_rtl_stream_init(mp, 2, device=dev), plain_chunks)):
+        s = init()
+        for c in chunks[:8]:  # warm up
+            s = step(s, c)
+        torch.cuda.synchronize()
+        walls = []
+        for c in chunks[8:128]:
+            t0 = time.perf_counter()
+            s = step(s, c)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e6)
+        res[f"{name}_p50_us"] = float(np.median(walls))
+        res[f"{name}_p99_us"] = float(np.percentile(walls, 99))
+        res[f"{name}_marginal_us"] = marginal_us(step, init, chunks)
+        log(f"  {name} step: p50 {res[f'{name}_p50_us']:.1f} us (p99 "
+            f"{res[f'{name}_p99_us']:.1f}) per block with a sync after each, marginal "
+            f"{res[f'{name}_marginal_us']:.1f} us per block; budget {BLOCK_BUDGET_US:.1f} us; "
+            f"card {card}")
+    del x, fused_chunks, plain_chunks
+    torch.cuda.empty_cache()
+
+    # throughput: the headline stream in 16 fused steps vs one-shot A + B;
+    # the streamed run's tables and final state against the one-shot run's
+    B, L = HEADLINE["batch"], HEADLINE["L"]
+    chunk = 16_384
+    whole, _ = minn_stimulus(B, L, Q, dev)
+    pieces = [whole[..., o: o + chunk].contiguous() for o in range(0, L, chunk)]
+    ref, (carry1, gate1) = F.minn_rtl_detect_fused(whole, quarter_len=Q, **KW, hysteresis=HYST,
+                                                   emit_unclosed=True, emit_state=True)
+    knife = minn_knife(F.minn_rtl_metric_planar_fused(whole, quarter_len=Q, **KW), 3 * Q - 1)
+
+    def streamed(tables=None):
+        s = ST.minn_rtl_fused_stream_init(mp, B, device=dev)
+        for p in pieces:
+            s, t = ST.minn_rtl_fused_stream_step(s, p, params=mp)
+            if tables is not None:
+                tables.append(cpu_table(t))
+        return s
+
+    reset_launch_counts()
+    tables = []
+    s = streamed(tables)
+    torch.cuda.synchronize()
+    res["stream16_launches"], res["stream16_modes"] = launch_counts(), mode_launch_counts()
+    if min(res["stream16_modes"].get("minn_rtl_metric/primed", 0),
+           res["stream16_modes"].get("gate_events/primed", 0)) < len(pieces):
+        raise AssertionError(f"the {len(pieces)} steps launched {res['stream16_modes']}")
+    ref_h = cpu_table(ref)
+    excused = compare_events([stitched(tables, None, b, L, HYST, True) for b in range(B)],
+                             [table_events(ref_h, b) for b in range(B)], HYST,
+                             f"{len(pieces)} steps vs one-shot", knife)
+    res["stream16_knife_streams"] = len(excused)
+    res["stream16_carry_rel_err"] = float(((s.carry - carry1).abs()
+                                           / carry1.abs().clamp_min(1.0)).max())
+    if res["stream16_carry_rel_err"] > CARRY_RTOL:
+        raise AssertionError(f"streamed carry vs one-shot: {res['stream16_carry_rel_err']}")
+    # the last above sample carries into the final state iff it lies in the
+    # last chunk or within h of its start (the gate continued into it)
+    la = gate1[:, 0]
+    want_la = torch.where(la >= L - chunk - HYST, la, torch.full_like(la, -1)).cpu()
+    keep = torch.ones(B, dtype=torch.bool)
+    keep[excused] = False
+    check_equal(s.gate[:, 0].cpu()[keep], want_la[keep], "streamed last-above vs one-shot")
+    del s, ref, ref_h, carry1, gate1, knife, tables
+    res["stream16_ms"] = cuda_ms(streamed)
+    res["oneshot_ms"] = cuda_ms(lambda: F.minn_rtl_detect_fused(whole, quarter_len=Q, **KW,
+                                                                 hysteresis=HYST))
+    del whole
+    torch.cuda.empty_cache()
+    log(f"  {B} x {L} x 2 in {L // chunk} fused steps of {chunk}: tables and final state == "
+        f"one-shot (launches {res['stream16_launches']}); {res['stream16_ms']:.3f} ms "
+        f"= {B * L / res['stream16_ms'] * 1e3:.4g} samples/s vs one-shot A + B "
+        f"{res['oneshot_ms']:.3f} ms ({res['stream16_ms'] / res['oneshot_ms']:.2f}x); card {card}")
+
+    # each primed kernel alone at the 512 x 16384 step shape, against its
+    # plain version on the same inputs (the phase-13 rules), then timed
+    base = 3 * chunk
+    p = pieces[3]
+    hist = pieces[2][..., -1536:].contiguous()
+    carry = torch.rand(B, device=dev) * 1e4
+    akw = dict(quarter_len=Q, **KW, base_index=base, hist_init=hist, carry_init=carry)
+    plain_a = lambda: minn_rtl_metric_planar(  # noqa: E731
+        F._planar_view(p), quarter_len=Q, **KW, base_index=base,
+        hist_init=F._planar_view(hist), carry_init=carry)
+    corr, above, carry_out = F.minn_rtl_metric(p, **akw, emit_state=True)
+    full = F.minn_rtl_metric_planar_fused(p, **akw)
+    st = plain_a()
+    what = f"primed A at {B} x {chunk}"
+    res["a_primed_err"] = rel_err(corr, st.corr_positive)
+    if max(res["a_primed_err"], rel_err(full.corr_positive, st.corr_positive)) > CORR_RTOL:
+        raise AssertionError(f"{what}: corr err {res['a_primed_err']} > {CORR_RTOL}")
+    check_equal(full.energy_total, st.energy_total, f"{what} energy")
+    if rel_err(full.smooth_metric, st.smooth_metric) > SMOOTH_RTOL:
+        raise AssertionError(f"{what}: smooth differs by more than {SMOOTH_RTOL}")
+    check_knife(above, st.above_threshold, st.smooth_metric, st.energy_total, what)
+    check_knife(full.above_threshold, st.above_threshold, st.smooth_metric, st.energy_total,
+                f"{what} full")
+    if rel_err(carry_out, st.smooth_metric[:, -1]) > CARRY_RTOL:
+        raise AssertionError(f"{what}: carry_out differs by more than {CARRY_RTOL}")
+    del full, st
+    res["a_primed_ms"] = cuda_ms(lambda: F.minn_rtl_metric(p, **akw, emit_state=True))
+    res["plain_a_primed_ms"] = cuda_ms(plain_a)
+    gi = gate_carry(B, base, torch.Generator(device=dev).manual_seed(15), dev, HYST)
+    bkw = dict(hysteresis=HYST, max_events=8, valid_from=3 * Q - 1, tie="last",
+               emit_unclosed=True, base_index=base, stream_len_global=ST.EPOCH_HORIZON,
+               gate_init=gi)
+    table, gate_out = F.gate_events(above, corr, **bkw, emit_state=True)
+    rt, _, rg = extract_gate_events_carried(above, corr, (), **bkw)
+    assert_tables_equal(rt, table, f"primed B at {B} x {chunk}")
+    check_equal(gate_out, rg, f"primed B at {B} x {chunk} gate_out")
+    res["b_primed_ms"] = cuda_ms(lambda: F.gate_events(above, corr, **bkw, emit_state=True))
+    res["plain_b_primed_ms"] = cuda_ms(lambda: extract_gate_events_carried(above, corr, (),
+                                                                           **bkw))
+    res["a_primed_work"] = a_work(B, chunk, 4, 4, 5, hist_len=1536)
+    res["b_primed_work"] = b_work(above, gated_samples(above, HYST))
+    del corr, above, pieces, table, rt
+    torch.cuda.empty_cache()
+    lag = AA_HEADLINE["lag"]
+    xa = aa_stimulus(B, 2 * chunk, lag, dev, seed=16, events=[(0, chunk + 100)])
+    pa, ha = xa[..., chunk:].contiguous(), xa[..., chunk - 1024: chunk].contiguous()
+
+    def plain_c():
+        st = aa_metric_planar(F._planar_view(pa), lag, base_index=chunk, hist=F._planar_view(ha))
+        return (st.P_re, st.P_im, *aa_detect_step(st.P_re, st.P_im, st.R, lag, AA_THR, chunk))
+
+    o = AF.aa_metric(pa, half_len=lag, threshold=AA_THR, base_index=chunk, hist_init=ha)
+    for name, out, want in zip(("P_re", "P_im", "track", "M", "above"),
+                               (o.P_re, o.P_im, o.track, o.M, o.above), plain_c()):
+        check_equal(out, want, f"primed C at {B} x {chunk} {name}")
+    res["c_primed_ms"] = cuda_ms(lambda: AF.aa_metric(pa, half_len=lag, threshold=AA_THR,
+                                                      base_index=chunk, hist_init=ha))
+    res["plain_c_primed_ms"] = cuda_ms(plain_c)
+    res["c_primed_work"] = c_work(B, chunk, 4, 4, 17, hist_len=1024)
+    del xa, pa, ha, o
+    mag = dyadic(mag_stimulus(B, 2 * chunk, dev, seed=17, events=[(0, chunk + 50)]))
+    pm, hm = mag[:, chunk:].contiguous(), mag[:, chunk - 2048: chunk].contiguous()
+    check_equal(ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk, hist_init=hm).above,
+                zc_cfar_planar(pm, **ZC_CFAR, base_index=chunk, hist=hm),
+                f"primed D at {B} x {chunk} above")
+    res["d_primed_ms"] = cuda_ms(lambda: ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk,
+                                                      hist_init=hm))
+    res["plain_d_primed_ms"] = cuda_ms(lambda: zc_cfar_planar(pm, **ZC_CFAR, base_index=chunk,
+                                                              hist=hm))
+    res["d_primed_work"] = d_mag_work(B, chunk, hist_len=2048)
+    del mag, pm, hm
+    torch.cuda.empty_cache()
+    log(f"  primed kernels at {B} x {chunk}, each == plain (the phase-13 rules): A "
+        f"{res['a_primed_ms']:.3f} ms (plain {res['plain_a_primed_ms']:.3f}), B "
+        f"{res['b_primed_ms']:.3f} (plain {res['plain_b_primed_ms']:.3f}), C "
+        f"{res['c_primed_ms']:.3f} (plain {res['plain_c_primed_ms']:.3f}), D "
+        f"{res['d_primed_ms']:.3f} (plain {res['plain_d_primed_ms']:.3f}); card {card}")
+    return res
+
+
+def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
+    """Kernel E's function as one PyTorch call, `conv1d` (cuDNN, TF32 off):
+    the complex full convolution of each plane pair with the taps as a
+    2-in / 2-out real convolution.  Returns (ms, max |conv - kernel E| over
+    the kernel's peak)."""
+    C, batch, L = x.shape
+    T = taps.shape[-1]
+    hr, hi = taps[0].flip(-1), taps[1].flip(-1)
+    w = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])  # (out 2, in 2, T)
+    xin = x.reshape(C // 2, 2, batch, L).permute(0, 2, 1, 3).reshape(-1, 2, L)
+    torch.backends.cudnn.allow_tf32 = False
+    conv = lambda: torch.nn.functional.conv1d(xin, w, padding=T - 1)  # noqa: E731
+    y = conv().reshape(C // 2, batch, 2, L + T - 1).permute(0, 2, 1, 3).reshape(C, batch, -1)
+    err = float((y - y_kernel).abs().max()) / float(y_kernel.abs().max())
+    del y
+    return cuda_ms(conv, reps=3), err
 
 
 def main() -> int:
@@ -863,7 +1590,7 @@ def main() -> int:
     log("== phase 1: device")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    dev = torch.device("cuda", 0)
+    dev = card_device()
     card = card_line()
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
@@ -888,47 +1615,83 @@ def main() -> int:
     zc_k = phase_zc_kernels(dev)
     zc_chain = phase_zc_chain(dev)
     zc_head = phase_zc_headline(dev, card)
+    sk = phase_stream_kernels(dev, card)
+    streams = phase_streams(dev, card)
+    lat = phase_latency(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    for name in counts}
     zc_launches = zc_chain["counts"]
-    kernels = [
-        dict(name="minn_rtl_metric", route="cuda",
-             source="ofdm_sync_tpu_torch/kernels/csrc/minn_rtl_metric.cu",
-             replaces="ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
-             launches=counts["minn_rtl_metric"], max_abs_err=k["corr_err"],
-             ms=h32["a_ms"], plain_ms=h32["plain_a_ms"]),
-        dict(name="gate_events", route="cuda",
-             source="ofdm_sync_tpu_torch/kernels/csrc/gate_events.cu",
-             replaces="ofdm_sync_tpu/kernels/pallas_minn_tm.py:60, "
-                      "ofdm_sync_tpu/kernels/pallas_aa.py:221, "
-                      "ofdm_sync_tpu/kernels/pallas_zc.py:35, "
-                      "ofdm_sync_tpu/kernels/pallas_zc.py:156",
-             launches=counts["gate_events"] + aa_launches["gate_events"]
-             + zc_launches["gate_events"], max_abs_err=0.0,
-             ms=h32["b_ms"], plain_ms=h32["plain_b_ms"]),
-        dict(name="aa_metric", route="cuda",
-             source="ofdm_sync_tpu_torch/kernels/csrc/aa_metric.cu",
-             replaces="ofdm_sync_tpu/kernels/pallas_aa.py:71, "
-                      "ofdm_sync_tpu/kernels/pallas_aa.py:221",
-             launches=aa_launches["aa_metric"], max_abs_err=aa_k["max_err"],
-             ms=aa_head["c_ms"], plain_ms=aa_head["plain_c_ms"]),
-        dict(name="zc_metric", route="cuda",
-             source="ofdm_sync_tpu_torch/kernels/csrc/zc_cfar.cu",
-             replaces="ofdm_sync_tpu/kernels/pallas_zc.py:35, "
-                      "ofdm_sync_tpu/kernels/pallas_zc.py:156, "
-                      "ofdm_sync_tpu/kernels/pallas_zc_tm.py:78",
-             launches=zc_launches["zc_metric"], max_abs_err=zc_k["mag_err"],
-             ms=zc_head["d_iq_f32_ms"], plain_ms=zc_head["plain_d_iq_ms"]),
-        dict(name="matched_filter_ols", route="cuda",
-             source="ofdm_sync_tpu_torch/kernels/csrc/matched_filter.cu",
-             replaces="ofdm_sync_tpu/kernels/pallas_mf.py:137",
-             launches=zc_launches["matched_filter_ols"], max_abs_err=zc_k["mf_err"],
-             ms=zc_head["e_ms"], plain_ms=zc_head["plain_e_ms"]),
+    modes = streams["modes"]
+    B, L = HEADLINE["batch"], HEADLINE["L"]
+    n, Bm = ZC_HEADLINE["n"], ZC_HEADLINE["mf_batch"]
+    src = "ofdm_sync_tpu_torch/kernels/csrc/"
+    # name, source, replaces, launches, max_abs_err, ms, plain_ms, (bytes, flops), library
+    rows = [
+        ("minn_rtl_metric", "minn_rtl_metric.cu", "ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
+         counts["minn_rtl_metric"], k["corr_err"], h32["a_ms"], h32["plain_a_ms"],
+         a_work(B, L, 4, 4, 5), None),
+        ("minn_rtl_metric[full]", "minn_rtl_metric.cu", "ofdm_sync_tpu/kernels/pallas_minn.py:240",
+         modes.get("minn_rtl_metric/full", 0), sk["errs"]["full"], sk["res"]["full_f32_ms"],
+         sk["res"]["plain_full_ms"], a_work(B, L, 4, 4, 13), None),
+        ("minn_rtl_metric[corr_energy]", "minn_rtl_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_minn.py:113", modes.get("minn_rtl_metric/corr_energy", 0),
+         sk["errs"]["corr_energy"], sk["res"]["corr_energy_f32_ms"],
+         sk["res"]["plain_corr_energy_ms"], a_work(B, L, 4, 4, 8, scan=False), None),
+        ("minn_rtl_metric[primed]", "minn_rtl_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_minn.py:403", modes.get("minn_rtl_metric/primed", 0),
+         max(sk["errs"]["primed_a"], lat["a_primed_err"]), lat["a_primed_ms"],
+         lat["plain_a_primed_ms"], lat["a_primed_work"], None),
+        ("gate_events", "gate_events.cu", "ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
+         counts["gate_events"], 0.0, h32["b_ms"], h32["plain_b_ms"],
+         b_work(torch.empty((B, L), dtype=torch.bool, device="meta"), h32["b_gated"]), None),
+        ("gate_events[primed]", "gate_events.cu",
+         "ofdm_sync_tpu/kernels/pallas_minn.py:403, ofdm_sync_tpu/kernels/pallas_aa.py:221, "
+         "ofdm_sync_tpu/kernels/pallas_zc.py:35", modes.get("gate_events/primed", 0), 0.0,
+         lat["b_primed_ms"], lat["plain_b_primed_ms"], lat["b_primed_work"], None),
+        ("gate_events[capture]", "gate_events.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         aa_launches["gate_events"], 0.0, aa_head["b_ms"], aa_head["plain_b_ms"],
+         aa_head["b_capture_work"], None),
+        ("aa_metric", "aa_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_aa.py:71, ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         aa_launches["aa_metric"], aa_k["max_err"], aa_head["c_ms"], aa_head["plain_c_ms"],
+         c_work(B, AA_HEADLINE["n"], 4, 4, 17), None),
+        ("aa_metric[primed]", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         modes.get("aa_metric/primed", 0), sk["errs"]["primed_c"], lat["c_primed_ms"],
+         lat["plain_c_primed_ms"], lat["c_primed_work"], None),
+        ("zc_metric", "zc_cfar.cu",
+         "ofdm_sync_tpu/kernels/pallas_zc.py:35, ofdm_sync_tpu/kernels/pallas_zc.py:156, "
+         "ofdm_sync_tpu/kernels/pallas_zc_tm.py:78", zc_launches["zc_metric"], zc_k["mag_err"],
+         zc_head["d_iq_f32_ms"], zc_head["plain_d_iq_ms"],
+         d_iq_work(ZC_HEADLINE["batch"], n + 2047, n, 4, 4), None),
+        ("zc_metric[primed magnitude]", "zc_cfar.cu", "ofdm_sync_tpu/kernels/pallas_zc.py:35",
+         modes.get("zc_metric/primed", 0), 0.0, lat["d_primed_ms"], lat["plain_d_primed_ms"],
+         lat["d_primed_work"], None),
+        ("matched_filter_ols", "matched_filter.cu", "ofdm_sync_tpu/kernels/pallas_mf.py:137",
+         zc_launches["matched_filter_ols"], zc_k["mf_err"], zc_head["e_ms"],
+         zc_head["plain_e_ms"], zc_head["e_work"], zc_head["library_e_ms"]),
     ]
+    # the bounds of the other cells of PERF.md's kernel table
+    other_bounds = {
+        "minn_rtl_metric int16": bound(*a_work(B, L, 4, 2, 5)),
+        "minn_rtl_metric[full] int16": bound(*a_work(B, L, 4, 2, 13)),
+        "aa_metric metric mode": bound(*c_work(B, AA_HEADLINE["n"], 4, 4, 12)),
+        "zc_metric magnitude, CFAR cell": bound(*d_mag_work(ZC_HEADLINE["batch"], n)),
+        "zc_metric IQ int16": bound(*d_iq_work(ZC_HEADLINE["batch"], n + 2047, n, 4, 2)),
+    }
+    kernels = []
+    for name, source, replaces, launches, err, ms, plain_ms, work, library in rows:
+        if launches < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        bound_ms, bound_by = bound(*work)
+        kernels.append(dict(name=name, route="cuda", source=src + source, replaces=replaces,
+                            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"headline": head, "aa_headline": aa_head,
-                      "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head}))
+                      "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head,
+                      "stream_kernels": sk["res"], "streams": streams, "latency": lat,
+                      "other_bounds_ms": other_bounds}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

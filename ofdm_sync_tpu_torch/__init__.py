@@ -13,7 +13,10 @@ Ported so far:
 * the Zadoff-Chu family (detectors D5 and D7 on the 30.72 MHz system):
   matched filter -> per-branch normalization -> CFAR -> strongest event ->
   CFO / LS EQ / EVM (`pipelines.zc`, `pipelines.zc_v2`), with the fused
-  CFAR paths of `ZCStreamingDetector`.
+  CFAR paths of `ZCStreamingDetector`;
+* the chunked streaming receivers (`kernels.streaming_chunked`, exported
+  here): Minn-RTL plain and fused, [A][A] fused and ZC CFAR fused, each
+  carrying its state between chunks.
 
 Plain tensor code is PyTorch; the detection hot paths are the five
 hand-written CUDA kernels for the H100 in `kernels/csrc/`.  On CPU tensors
@@ -26,6 +29,28 @@ from ofdm_sync_tpu_torch.params import (  # noqa: F401
     SYS_30M72,
     SYS_AA_10M,
     MinnRTLParams,
+)
+from ofdm_sync_tpu_torch.kernels.streaming_chunked import (  # noqa: F401
+    EPOCH_HORIZON,
+    AAFusedStreamState,
+    MinnRTLFusedStreamState,
+    MinnRTLStreamParams,
+    MinnRTLStreamState,
+    ZCCFARFusedStreamState,
+    aa_fused_stream_init,
+    aa_fused_stream_rebase,
+    aa_fused_stream_step,
+    epoch_headroom,
+    minn_rtl_fused_stream_init,
+    minn_rtl_fused_stream_rebase,
+    minn_rtl_fused_stream_step,
+    minn_rtl_stream_finalize,
+    minn_rtl_stream_init,
+    minn_rtl_stream_rebase,
+    minn_rtl_stream_step,
+    stitch_chunk_tables,
+    zc_cfar_fused_stream_init,
+    zc_cfar_fused_stream_step,
 )
 
 __version__ = "0.1.0"

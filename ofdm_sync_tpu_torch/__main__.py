@@ -33,12 +33,18 @@ def main(argv: list[str] | None = None) -> int:
     )
     fused_rx.add_cli_args(p_rx)
     for name, help_text in _SIMULATIONS.items():
-        sub.add_parser(name, help=help_text)
+        p = sub.add_parser(name, help=help_text)
+        p.add_argument(
+            "--device", default="cuda",
+            help="cuda (the default) or cpu.  The simulation runs the plain `detect` "
+                 "there, as the JAX pipeline does; the ZC kernels (D, E, B) run through "
+                 "ZCStreamingDetector.detect_fused / detect_fused_iq")
     args = parser.parse_args(argv)
     if args.command == "fused_rx":
         fused_rx.run_cli(args)
     else:
-        importlib.import_module(f"ofdm_sync_tpu_torch.pipelines.{args.command}").main()
+        importlib.import_module(f"ofdm_sync_tpu_torch.pipelines.{args.command}").main(
+            device=args.device)
     return 0
 
 

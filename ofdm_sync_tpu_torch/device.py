@@ -1,7 +1,8 @@
 """Device resolution and checks.
 
-Every entry point of the port takes an explicit ``device``.  A CUDA device
-is used only when one is really there: asking for "cuda" on a machine
+Every entry point of the port takes a ``device`` and runs on the card
+unless the caller asks for the CPU (``device="cpu"``).  A CUDA device is
+used only when one is really there: the default or "cuda" on a machine
 without a card raises instead of silently running on the CPU.
 """
 
@@ -11,8 +12,9 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` -> CPU; otherwise the named device, checked to exist."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` -> the current CUDA device; otherwise the named device,
+    checked to exist."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -13,6 +13,12 @@ Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_aa.py:_aa_metric_kernel`
   Minn-RTL detector, in its capture mode: the event table plus (P_re,
   P_im, M) read at each slot's peak.
 
+Both take the carried state of a stream's chunk (`pallas_aa.py:_aa_kernel`
+with base_index / stream_len_global / shard_init / emit_state): kernel C
+reads the IQ history before sample 0 and compares global indices (the
+metric has no IIR, so the history alone primes it), kernel B takes the gate
+carry in and gives it out.
+
 `sc_metric_planar` and `minn_metric_planar` are the thin re-indexings of
 `pallas_aa.py:144-218`: the Schmidl-Cox and standard-Minn metrics are AA
 windows at other taps.
@@ -27,6 +33,7 @@ extract_gate_events_capture`); any other device raises.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -34,12 +41,16 @@ import torch
 from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
-    _I32_LIMIT,
     _SMEM_LIMIT,
     _check_input,
+    _count,
+    _history,
     _planar_view,
+    _ptr,
     _stream,
+    check_index_range,
     gate_events_capture,
+    host_index,
 )
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar as _plain
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
@@ -67,28 +78,36 @@ def smem_bytes(half_len: int) -> int:
     return 3 * (half_len + CHUNK) * 8
 
 
-def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None) -> AAMetricRows:
+def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
+              base_index=0, hist_init: torch.Tensor | None = None) -> AAMetricRows:
     """Kernel C.  x: (C, batch, L) float32 or int16.  ``threshold`` None:
     metric mode (P_re, P_im, R); a float: detect mode (P_re, P_im, M, track,
-    above) with ``above = n >= L & M >= float32(threshold)``."""
+    above) with ``above = n >= L & M >= float32(threshold)``.  Primed:
+    ``base_index`` (a host integer) is the global index of sample 0 (valid
+    from ``base + n >= L``), ``hist_init`` (C, batch, <=H) float32 the
+    samples before it, right-aligned."""
     _check_input(x)
     C, batch, L = x.shape
     lag = half_len
     if lag < 1:
         raise ValueError("half_len must be positive")
-    if check_kernel_device(x) == "cpu":
-        st = _plain(_planar_view(x), lag)
+    base = host_index(base_index)
+    hist = _history(hist_init, (C, batch), "hist_init")
+    if check_kernel_device(x, *(() if hist is None else (hist,))) == "cpu":
+        st = _plain(_planar_view(x), lag, base_index=base,
+                    hist=None if hist is None else _planar_view(hist))
         if threshold is None:
             return AAMetricRows(st.P_re, st.P_im, st.R, None, None, None)
-        track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, threshold)
+        track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, threshold, base)
         return AAMetricRows(st.P_re, st.P_im, None, M, track, above)
     if not x.is_contiguous():
         raise ValueError("kernel C needs a contiguous input")
     if smem_bytes(lag) > _SMEM_LIMIT:
         raise ValueError(f"half_len {lag} needs {smem_bytes(lag)} B of shared memory, "
                          f"more than the {_SMEM_LIMIT} B a Hopper CTA has")
-    if L >= _I32_LIMIT or batch > _MAX_BATCH:
-        raise ValueError(f"kernel C takes < 2^31 samples and <= {_MAX_BATCH} streams")
+    if batch > _MAX_BATCH:
+        raise ValueError(f"kernel C takes <= {_MAX_BATCH} streams")
+    check_index_range(base, L)
     new = lambda dt: torch.empty((batch, L), dtype=dt, device=x.device)  # noqa: E731
     detect = threshold is not None
     p_re, p_im = new(torch.float32), new(torch.float32)
@@ -96,19 +115,19 @@ def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None)
     m, track, above = ((new(torch.float32), new(torch.float32), new(torch.uint8))
                        if detect else (None, None, None))
     if batch and L:
-        lib = build.library()
-        fn = lib.aa_metric_f32 if x.dtype == torch.float32 else lib.aa_metric_i16
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        err = fn(x.data_ptr(), C, batch, L, lag, CHUNK, 1e-6 * lag,
-                 threshold if detect else 0.0, ptr(p_re), ptr(p_im), ptr(r), ptr(track),
-                 ptr(m), ptr(above), _stream(x))
+        err = build.library().aa_metric(
+            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag, CHUNK,
+            0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
+            threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r), _ptr(track),
+            _ptr(m), _ptr(above), _stream(x))
         build.check(err, "aa_metric")
-        aa_metric.launches += 1
+        _count(aa_metric, *(("primed",) if hist is not None or base != 0 else ()))
     return AAMetricRows(p_re, p_im, r, m, track,
                         None if above is None else above.view(torch.bool))
 
 
 aa_metric.launches = 0
+aa_metric.modes = collections.Counter()
 
 
 def aa_metric_planar(x: torch.Tensor, *, half_len: int):
@@ -126,19 +145,33 @@ def aa_detect_fused(
     max_events: int = 8,
     tie: str = "first",
     emit_unclosed: bool = True,
-) -> tuple[GateEvents, torch.Tensor, torch.Tensor]:
+    base_index=None,
+    stream_len_global: int | None = None,
+    shard_init: tuple | None = None,
+    emit_state: bool = False,
+):
     """#6: fused [A][A] detection on the channel-leading layout.
 
     Gates at ``M >= threshold`` (valid from n >= L), tracks the peak on
     ``|P|^2`` and captures (P_re, P_im, M) at each slot's peak.  Returns
     (`GateEvents` (batch, E), P_at_peak (batch, 2, E) planar float32,
     M_at_peak (batch, E)): everything a receiver needs for timing
-    (peak - 2L + 1) and CFO (angle(P) fs / (2 pi L))."""
-    o = aa_metric(x, half_len=half_len, threshold=threshold)
-    table, cap = gate_events_capture(
+    (peak - 2L + 1) and CFO (angle(P) fs / (2 pi L)).
+
+    Carried state, as `aa_detect_fused_pallas`: ``base_index`` (a host
+    integer), ``stream_len_global``, ``shard_init`` = (hist_init (C, batch,
+    <=H) float32, gate_init (batch, 2) int32 [last-above, open-gate
+    flag]); with ``emit_state`` a fourth value, gate_out (batch, 2)
+    [last-above, cluster count]."""
+    hist, ginit = (None, None) if shard_init is None else shard_init
+    base = 0 if base_index is None else host_index(base_index)
+    o = aa_metric(x, half_len=half_len, threshold=threshold, base_index=base, hist_init=hist)
+    table, cap, *gate_out = gate_events_capture(
         o.above, o.track, (o.P_re, o.P_im, o.M), hysteresis=hysteresis,
-        max_events=max_events, valid_from=0, tie=tie, emit_unclosed=emit_unclosed)
-    return table, cap[:, :2], cap[:, 2]
+        max_events=max_events, valid_from=0, tie=tie, emit_unclosed=emit_unclosed,
+        base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
+        emit_state=emit_state)
+    return (table, cap[:, :2], cap[:, 2], *gate_out)
 
 
 def sc_metric_planar(x: torch.Tensor, *, n_fft: int):

@@ -19,6 +19,14 @@
 //   M     = n >= L && R > 1e-6 L ? min(track / max(R, 1e-12)^2, 1) : 0
 //   above = n >= L && M >= threshold
 // (pallas_aa.py:302-313).  Any output pointer may be null: not written.
+// Primed mode (pallas_aa.py:_aa_kernel's base_index / shard_init): x[k] for
+// k < 0 reads the right-aligned history hist[c, b, Hh + k] (zero before it
+// or without one), and validity compares the global index: base + n >= L.
+// The metric has no IIR, so the history alone primes a chunk.
+//
+// Two CTAs of 512 threads share an SM (__launch_bounds__(512, 2), at most
+// 64 registers a thread; the history loads alone took it past 64, and an
+// H100 SM down to one CTA and a slower kernel).
 //
 // What bounds it on the H100: HBM bytes.  It reads 16 B/sample (f32, two
 // branches) or 8 B/sample (int16), plus the lag-L re-read (mostly from L2)
@@ -46,6 +54,12 @@ namespace {
 
 constexpr int kThreads = 512;
 
+struct Primed {
+  const float* hist;  // (C, batch, hist_len) right-aligned, or null
+  int hist_len;
+  long long base;     // global index of sample 0
+};
+
 struct Outputs {
   float* pre;
   float* pim;
@@ -56,9 +70,9 @@ struct Outputs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) aa_metric_kernel(
+__global__ void __launch_bounds__(kThreads, 2) aa_metric_kernel(
     const T* __restrict__ x, int C, int batch, long long L, int lag, int chunk,
-    float noise_floor, float thr, Outputs out) {
+    float noise_floor, float thr, Outputs out, Primed pr) {
   extern __shared__ double smem[];
   __shared__ double3 sbuf[32];
 
@@ -72,21 +86,43 @@ __global__ void __launch_bounds__(kThreads) aa_metric_kernel(
   const long long k0 = c0 - lag + 1;
   const size_t plane = (size_t)batch * (size_t)L;
   const T* xs = x + (size_t)b * (size_t)L;
+  const float* hs = pr.hist ? pr.hist + (size_t)b * (size_t)pr.hist_len : nullptr;
+  const size_t hplane = (size_t)batch * (size_t)pr.hist_len;
+
+  // sample k of row c: the stream, the history before it, zero elsewhere
+  auto ld = [&](int c, long long k) -> double {
+    if (k >= 0) return k < L ? (double)xs[(size_t)c * plane + (size_t)k] : 0.0;
+    if (hs && k >= -(long long)pr.hist_len)
+      return (double)hs[(size_t)c * hplane + (size_t)(pr.hist_len + k)];
+    return 0.0;
+  };
 
   if (threadIdx.x == 0) pre_p[0] = pim_p[0] = pw_p[0] = 0.0;
   double3 carry = make_double3(0.0, 0.0, 0.0);
   const int nprod = W - 1;
+  // the CTAs whose products and lag-L reads lie inside the stream (all but
+  // the first and the last) load without bounds checks
+  const bool interior = k0 - lag >= 0 && k0 + nprod <= L;
   for (int t0 = 0; t0 < nprod; t0 += blockDim.x) {
     const int e = t0 + threadIdx.x;
     const long long k = k0 + e;
     double3 u = make_double3(0.0, 0.0, 0.0);
-    if (e < nprod && k >= 0 && k < L) {
+    if (e < nprod && k < L) {
       for (int c = 0; c + 1 < C; c += 2) {
-        const T* ri = xs + (size_t)c * plane;
-        const T* rq = ri + plane;
-        const double i = (double)ri[k], q = (double)rq[k];
-        const double id = k >= lag ? (double)ri[k - lag] : 0.0;
-        const double qd = k >= lag ? (double)rq[k - lag] : 0.0;
+        double i, q, id, qd;
+        if (interior) {
+          const T* ri = xs + (size_t)c * plane;
+          const T* rq = ri + plane;
+          i = (double)ri[k];
+          q = (double)rq[k];
+          id = (double)ri[k - lag];
+          qd = (double)rq[k - lag];
+        } else {
+          i = ld(c, k);
+          q = ld(c + 1, k);
+          id = ld(c, k - lag);
+          qd = ld(c + 1, k - lag);
+        }
         u.x += i * id + q * qd;
         u.y += q * id - i * qd;
         u.z += i * i + q * q;
@@ -117,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) aa_metric_kernel(
     if (out.r) out.r[o] = r;
     if (out.m) {
       const float track = __fadd_rn(__fmul_rn(p_re, p_re), __fmul_rn(p_im, p_im));
-      const bool valid = n >= lag;
+      const bool valid = pr.base + n >= lag;
       float m = 0.0f;
       if (valid && r > noise_floor) {
         const float rc = fmaxf(r, 1e-12f);
@@ -132,35 +168,31 @@ __global__ void __launch_bounds__(kThreads) aa_metric_kernel(
 
 template <typename T>
 int launch(const void* x, int C, int batch, long long L, int lag, int chunk,
-           float noise_floor, float thr, Outputs out, void* stream) {
+           float noise_floor, float thr, Outputs out, Primed pr, void* stream) {
   const size_t smem = 3 * (size_t)(lag + chunk) * sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(
       aa_metric_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((L + chunk - 1) / chunk), (unsigned)batch);
   aa_metric_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, C, batch, L, lag, chunk, noise_floor, thr, out);
+      (const T*)x, C, batch, L, lag, chunk, noise_floor, thr, out, pr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pre, pim, r, track, m, above: (batch, L) outputs; null pointers are skipped
+// x (C, batch, L) float32 (is_i16 = 0) or int16; hist (C, batch, hist_len)
+// float32 or null, base the global index of sample 0 (primed mode); pre,
+// pim, r, track, m, above: (batch, L) outputs, null pointers are skipped
 // (metric mode: track = m = above = null; detect mode: r = null).
-extern "C" int aa_metric_f32(const void* x, int C, int batch, long long L,
-                             int lag, int chunk, float noise_floor, float thr,
-                             void* pre, void* pim, void* r, void* track,
-                             void* m, void* above, void* stream) {
+extern "C" int aa_metric(int is_i16, const void* x, const void* hist, int C, int batch,
+                         long long L, int lag, int chunk, int hist_len, long long base,
+                         float noise_floor, float thr, void* pre, void* pim, void* r,
+                         void* track, void* m, void* above, void* stream) {
   const Outputs out{(float*)pre, (float*)pim, (float*)r, (float*)track, (float*)m,
                     (uint8_t*)above};
-  return launch<float>(x, C, batch, L, lag, chunk, noise_floor, thr, out, stream);
-}
-
-extern "C" int aa_metric_i16(const void* x, int C, int batch, long long L,
-                             int lag, int chunk, float noise_floor, float thr,
-                             void* pre, void* pim, void* r, void* track,
-                             void* m, void* above, void* stream) {
-  const Outputs out{(float*)pre, (float*)pim, (float*)r, (float*)track, (float*)m,
-                    (uint8_t*)above};
-  return launch<int16_t>(x, C, batch, L, lag, chunk, noise_floor, thr, out, stream);
+  const Primed pr{(const float*)hist, hist ? hist_len : 0, base};
+  return is_i16 ? launch<int16_t>(x, C, batch, L, lag, chunk, noise_floor, thr, out, pr,
+                                  stream)
+                : launch<float>(x, C, batch, L, lag, chunk, noise_floor, thr, out, pr, stream);
 }

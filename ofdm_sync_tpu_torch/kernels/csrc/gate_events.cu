@@ -15,6 +15,19 @@
 // recorded, `count` counts valid slots and `overflow` says more gates
 // occurred than E.
 //
+// Carried-state modes (pallas_minn.py:_detect_kernel and its AA / ZC twins
+// with base_index / stream_len_global / shard_init / emit_state): sample n
+// of the call has the global index base + n, and every index in the table
+// is global; Lg (stream_len_global, else L) replaces L in the close rule
+// (closed iff last_above + h <= Lg - 1, close clipped to [0, Lg - 1],
+// pallas_common.py:404-415) and masks above samples at or past it; peaks
+// are tracked below min(Lg, base + L) (pallas_minn.py:529-530).  gate_init
+// (batch, 2) int32 = [last-above global index, cluster count] primes the
+// gate state (pallas_minn.py:479-497), so a carried gate continues in slot
+// 0 and new ones count on from it; gate_out (batch, 2) = [last-above,
+// cluster count] is the state after the last sample (pallas_common.py:
+// 379-389), the carry of the next chunk.
+//
 // What bounds it on the H100: per-stream latency.  The gate state of a
 // sample depends on every earlier sample of its stream, so one CTA walks
 // one stream in order; it reads 1 B/sample of `above` and the 4 B/sample
@@ -62,6 +75,16 @@ __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2,
   return false;
 }
 
+// the carried-state mode of one call; base = 0, Lg = track_end = L and no
+// gate_init / gate_out is the plain mode
+struct Carry {
+  int base;             // global index of sample 0
+  long long Lg;         // global stream length of the close rule
+  long long track_end;  // peaks are tracked below this global index
+  const int* gate_init; // (batch, 2) or null: [-1, 0]
+  int* gate_out;        // (batch, 2) or null
+};
+
 __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     const uint8_t* __restrict__ above, const float* __restrict__ track,
     long long L, int valid_from, int h, int E, int tie_last, int emit_unclosed,
@@ -69,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     int* __restrict__ start_out, int* __restrict__ close_out,
     int* __restrict__ pidx_out, float* __restrict__ pval_out,
     int* __restrict__ count_out, uint8_t* __restrict__ overflow_out,
-    Extras extras) {
+    Extras extras, Carry carry) {
   __shared__ int s_start[kMaxEvents], s_last[kMaxEvents], s_pidx[kMaxEvents];
   __shared__ float s_pval[kMaxEvents];
   __shared__ int s_carry_la, s_carry_cnt, s_cmin, s_cmax, s_count;
@@ -91,23 +114,26 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     s_pval[s] = -CUDART_INF_F;
   }
   if (threadIdx.x == 0) {
-    s_carry_la = -1;
-    s_carry_cnt = 0;
+    s_carry_la = carry.gate_init ? carry.gate_init[2 * b] : -1;
+    s_carry_cnt = carry.gate_init ? carry.gate_init[2 * b + 1] : 0;
     s_count = 0;
   }
   __syncthreads();
 
+  // indices below are global (carry.base + local); local ones read memory
   for (long long t0 = 0; t0 < L; t0 += kTile) {
-    const int base = (int)(t0 + (long long)threadIdx.x * kItems);
+    const int lbase = (int)(t0 + (long long)threadIdx.x * kItems);
+    const int base = carry.base + lbase;
     unsigned abits = 0;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int n = base + k;
-      if (n < L && n >= valid_from && ab[n]) abits |= 1u << k;
+      if (lbase + k < L && n >= valid_from && n < carry.Lg && ab[lbase + k])
+        abits |= 1u << k;
     }
     const bool any = __syncthreads_or(abits != 0);
     const int carry_la = s_carry_la, carry_cnt = s_carry_cnt;
-    const bool open = carry_la >= 0 && t0 - carry_la <= h;
+    const bool open = carry_la >= 0 && carry.base + t0 - carry_la <= h;
     if (!any && !open) continue;  // quiet tile: no gate can change
     if (threadIdx.x == 0) {
       s_cmin = kI32Max;
@@ -149,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
       const int n = base + k;
       if (newbits >> k & 1u) ++cid;
       cid_k[k] = cid;
-      if (la_k[k] >= 0 && n - la_k[k] <= h && cid >= 1 && n < L) {
+      if (la_k[k] >= 0 && n - la_k[k] <= h && cid >= 1 && n < carry.track_end) {
         gatebits |= 1u << k;
         cmin = min(cmin, cid);
         cmax = max(cmax, cid);
@@ -165,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     float tv[kItems];
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
-      tv[k] = (gatebits >> k & 1u) ? tb[base + k] : 0.0f;
+      tv[k] = (gatebits >> k & 1u) ? tb[lbase + k] : 0.0f;
 
     for (int c = lo; c <= hi; ++c) {
       int bstart = kI32Max, blast = -1, bidx = last ? -1 : kI32Max;
@@ -234,18 +260,18 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
     const size_t o = (size_t)b * E + s;
     const bool exists = s < nexist;
     const long long close_raw = (long long)s_last[s] + h;
-    const bool closed = exists && close_raw <= L - 1;
+    const bool closed = exists && close_raw <= carry.Lg - 1;
     const bool valid = exists && (closed || emit_unclosed);
     valid_out[o] = valid;
     closed_out[o] = closed;
     start_out[o] = exists ? s_start[s] : 0;
-    close_out[o] = exists ? (int)min(max(close_raw, 0LL), L - 1) : 0;
+    close_out[o] = exists ? (int)min(max(close_raw, 0LL), carry.Lg - 1) : 0;
     pidx_out[o] = exists ? s_pidx[s] : 0;
     pval_out[o] = exists ? s_pval[s] : 0.0f;
 #pragma unroll
     for (int k = 0; k < kMaxExtras; ++k) {  // constant k: no local-memory array
       if (k >= extras.n) break;
-      const int p = s_pidx[s];
+      const long long p = (long long)s_pidx[s] - carry.base;  // local index
       extras.cap[((size_t)b * extras.n + k) * E + s] =
           exists && p >= 0 && p < L ? extras.src[k][(size_t)b * (size_t)L + p] : 0.0f;
     }
@@ -255,13 +281,20 @@ __global__ void __launch_bounds__(kThreads) gate_events_kernel(
   if (threadIdx.x == 0) {
     count_out[b] = s_count;
     overflow_out[b] = total > E;
+    if (carry.gate_out) {
+      carry.gate_out[2 * b] = s_carry_la;
+      carry.gate_out[2 * b + 1] = total;
+    }
   }
 }
 
 }  // namespace
 
 // ex0..ex2: optional (batch, L) float channels captured at the peaks into
-// cap (batch, n_extra, E); n_extra = 0 captures nothing.
+// cap (batch, n_extra, E); n_extra = 0 captures nothing.  base, Lg,
+// gate_init, gate_out: the carried-state mode (see the top of the file);
+// base = 0, Lg = L and two null pointers give the plain mode.  The caller
+// keeps base + L + 2048 and Lg below 2^31.
 extern "C" int gate_events_f32(const void* above, const void* track, int batch,
                                long long L, int valid_from, int h, int E,
                                int tie_last, int emit_unclosed, void* valid,
@@ -269,15 +302,19 @@ extern "C" int gate_events_f32(const void* above, const void* track, int batch,
                                void* pidx, void* pval, void* count,
                                void* overflow, const void* ex0, const void* ex1,
                                const void* ex2, int n_extra, void* cap,
-                               void* stream) {
+                               int base, long long Lg, const void* gate_init,
+                               void* gate_out, void* stream) {
   if (E < 1 || E > kMaxEvents) return (int)cudaErrorInvalidValue;
   if (n_extra < 0 || n_extra > kMaxExtras) return (int)cudaErrorInvalidValue;
   const Extras extras{{(const float*)ex0, (const float*)ex1, (const float*)ex2},
                       n_extra, (float*)cap};
+  const long long local_end = (long long)base + L;
+  const Carry carry{base, Lg, Lg < local_end ? Lg : local_end, (const int*)gate_init,
+                    (int*)gate_out};
   gate_events_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)above, (const float*)track, L, valid_from, h, E,
       tie_last, emit_unclosed, (uint8_t*)valid, (uint8_t*)closed, (int*)start,
       (int*)close, (int*)pidx, (float*)pval, (int*)count, (uint8_t*)overflow,
-      extras);
+      extras, carry);
   return (int)cudaGetLastError();
 }

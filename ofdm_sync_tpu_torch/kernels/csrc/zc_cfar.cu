@@ -9,7 +9,10 @@
 // Magnitude mode reads corr_mag (batch, L) and writes
 //   above[n] = n >= W && mag[n] * 2^frac >= local[n] * T && mag[n] >= min
 // with local[n] the sum of mag over the W-window ending at n (samples
-// before 0 read as zero).  IQ mode first forms mag (pallas_zc.py:203-224):
+// before 0 read as zero).  Primed magnitude mode (pallas_zc.py:_zc_kernel's
+// base_index / shard_init): magnitudes before 0 read the right-aligned
+// history hist[b, Hh + n] (zero before it), and validity compares the
+// global index, base + n >= W.  IQ mode first forms mag (pallas_zc.py:203-224):
 // for each branch b, from the planar matched-filter rows mf[2b], mf[2b+1]
 // (2*BR, batch, Lc) and the planar IQ rows (2*BR, batch, L_iq),
 //   E_b[n] = sum of i*i + q*q over k in [n-R+1, n], zero for k >= L_iq
@@ -56,6 +59,9 @@ constexpr int kMaxBranches = 4;
 
 struct Params {
   const float* mag_in;  // magnitude mode: (batch, L)
+  const float* hist;    // magnitude mode: (batch, hist_len) right-aligned, or null
+  int hist_len;
+  long long base;       // global index of sample 0
   const float* mf;      // IQ mode: (2*BR, batch, L) matched-filter planes
   const void* iq;       // IQ mode: (2*BR, batch, L_iq) float32 or int16
   long long L;          // outputs per stream: L (magnitude mode) or Lc
@@ -139,7 +145,11 @@ __global__ void __launch_bounds__(kThreads) zc_cfar_kernel(Params p) {
         mag = __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
       }
     } else {
-      if (j >= 0 && j < c_end) mag = p.mag_in[row + (size_t)j];
+      if (j >= 0 && j < c_end) {
+        mag = p.mag_in[row + (size_t)j];
+      } else if (j < 0 && p.hist && j >= -(long long)p.hist_len) {
+        mag = p.hist[(size_t)b * (size_t)p.hist_len + (size_t)(p.hist_len + j)];
+      }
     }
 
     ofdm::DVec<1> mv, mtot;
@@ -152,7 +162,8 @@ __global__ void __launch_bounds__(kThreads) zc_cfar_kernel(Params p) {
       const long long jo = j - p.window;
       const double old = jo >= s0 ? ring_m[jo & mask_m] : 0.0;
       const float local = (float)(minc - old);
-      const bool a = j >= p.window && __fmul_rn(mag, p.scale) >= __fmul_rn(local, p.thr) &&
+      const bool a = p.base + j >= p.window &&
+                     __fmul_rn(mag, p.scale) >= __fmul_rn(local, p.thr) &&
                      mag >= p.min_mag;
       p.above[row + (size_t)j] = a ? 1 : 0;
       if constexpr (BR > 0) p.mag_out[row + (size_t)j] = mag;
@@ -213,12 +224,16 @@ Params iq_params(const void* mf, const void* iq, int batch, long long Lc, long l
 
 }  // namespace
 
-// corr_mag (batch, L) float32 -> above (batch, L) uint8
-extern "C" int zc_cfar_mag_f32(const void* mag, int batch, long long L, int chunk, int W,
-                               float scale, float thr, float min_mag, void* above,
-                               void* stream) {
+// corr_mag (batch, L) float32 -> above (batch, L) uint8; hist (batch,
+// hist_len) float32 or null and base: the primed mode
+extern "C" int zc_cfar_mag_f32(const void* mag, const void* hist, int batch, long long L,
+                               int chunk, int W, int hist_len, long long base, float scale,
+                               float thr, float min_mag, void* above, void* stream) {
   Params p{};
   p.mag_in = (const float*)mag;
+  p.hist = (const float*)hist;
+  p.hist_len = hist ? hist_len : 0;
+  p.base = base;
   p.L = L;
   p.batch = batch;
   p.chunk = chunk;

@@ -2,8 +2,11 @@
 
 Each kernel wrapper adds one to its ``.launches`` where it launches its
 kernel on a card, and nowhere else (a CPU tensor runs the plain version and
-counts nothing).  A run shows that it went through the kernels by resetting
-the counts, driving its path and reading them.
+counts nothing); at the same place it adds one to ``.modes[name]`` for each
+mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
+``corr_energy``, and ``primed``; kernels B, C, D: ``primed``, the
+carried-state mode).  A run shows that it went through the kernels by
+resetting the counts, driving its path and reading them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,15 @@ KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_f
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "modes"):
+            fn.modes.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def mode_launch_counts() -> dict[str, int]:
+    """Launches per kernel and mode, as ``"<kernel>/<mode>"``."""
+    return {f"{fn.__name__}/{mode}": n for fn in KERNEL_WRAPPERS
+            for mode, n in sorted(getattr(fn, "modes", {}).items())}

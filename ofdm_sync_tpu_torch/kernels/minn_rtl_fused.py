@@ -1,37 +1,54 @@
 """Fused Minn-RTL detection: IQ in, `GateEvents` out.
 
 Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_minn_tm.py:_tm_kernel`
-(`minn_rtl_detect_fused_tm`) and `pallas_minn.py:_detect_kernel`
-(`minn_rtl_detect_fused_pallas`).  On the H100 the work is two CUDA
-kernels (`csrc/minn_rtl_metric.cu`, `csrc/gate_events.cu`):
+(`minn_rtl_detect_fused_tm`, #1), `pallas_minn.py:_detect_kernel`
+(`minn_rtl_detect_fused_pallas`, #2, with its carried-state modes),
+`pallas_minn.py:_minn_kernel` (`minn_rtl_metric_planar_pallas`, #3) and
+`pallas_minn.py:_corr_energy_kernel` (`minn_rtl_corr_energy_planar_pallas`,
+#4).  On the H100 the work is two CUDA kernels (`csrc/minn_rtl_metric.cu`,
+`csrc/gate_events.cu`):
 
-* kernel A, `minn_rtl_metric`: per-sample corr_positive and above, one CTA
-  per (time chunk, stream), each chunk primed from a left halo;
+* kernel A, `minn_rtl_metric`: the per-sample metric, one CTA per (time
+  chunk, stream), each chunk primed from a left halo.  Its output modes:
+  corr_positive and above (#1, #2), the full metric with smooth and energy
+  (#3, `minn_rtl_metric_planar_fused`), corr_positive and energy without
+  the IIR (#4, `minn_rtl_corr_energy_planar_fused`).  Primed, it starts
+  from the IQ history and smoothing register of the chunk before
+  (``base_index``, ``hist_init``, ``carry_init``) and can return the
+  register at its last sample (``emit_state``);
 * kernel B, `gate_events`: one CTA per stream walks its time tiles in order
-  and writes the event table.  The [A][A] detector (`kernels.aa_fused`)
+  and writes the event table; its carried-state mode takes global indices
+  (``base_index``, ``stream_len_global``) and the gate carry in and out
+  (``gate_init``, ``emit_state``).  The [A][A] detector (`kernels.aa_fused`)
   uses it too, through `gate_events_capture`, which also reads side
   channels at each slot's peak.
 
 Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
-tensor it launches its kernel (and counts the launch in ``.launches``, see
-`kernels.launches`); on a CPU tensor it runs the plain PyTorch version
-(`kernels.streaming`, `ops.detect.extract_gate_events`); any other device
+tensor it launches its kernel (and counts the launch in ``.launches``, and
+the mode in ``.modes``, see `kernels.launches`); on a CPU tensor it runs the
+plain PyTorch version (`kernels.streaming`, `ops.detect`); any other device
 raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import collections
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
-from ofdm_sync_tpu_torch.kernels.streaming import minn_rtl_metric_planar
+from ofdm_sync_tpu_torch.kernels.streaming import (
+    MinnRTLFastState,
+    minn_rtl_corr_energy_planar,
+    minn_rtl_metric_planar,
+)
 from ofdm_sync_tpu_torch.ops.detect import (
     GateEvents,
     empty_table,
-    extract_gate_events,
-    extract_gate_events_capture,
+    extract_gate_events_carried,
 )
 
 #: output samples per kernel-A CTA
@@ -40,8 +57,27 @@ CHUNK = 4096
 MAX_EVENTS = 128
 #: dynamic shared memory a Hopper CTA may use
 _SMEM_LIMIT = 227 * 1024
-#: the kernels index samples in int32 and read up to one 2048-sample tile past L
+#: the kernels index samples in int32 and read up to one 2048-sample tile
+#: past the end: base + L stays below this
 _I32_LIMIT = 2**31 - 2 * 2048
+
+#: kernel A's output modes: name -> outputs written
+_A_MODES = {
+    "corr_above": ("corr", "above"),
+    "full": ("corr", "smooth", "energy", "above"),
+    "corr_energy": ("corr", "energy"),
+}
+
+
+class MinnMetricRows(NamedTuple):
+    """Kernel A's outputs, each (batch, L) (carry_out (batch,)); the fields
+    a mode does not produce are None."""
+
+    corr: torch.Tensor
+    smooth: torch.Tensor | None
+    energy: torch.Tensor | None
+    above: torch.Tensor | None
+    carry_out: torch.Tensor | None
 
 
 def metric_halo(quarter_len: int, smooth_shift: int) -> int:
@@ -76,6 +112,113 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def host_index(base_index) -> int:
+    """A global sample index as a host integer: an int, a NumPy integer or
+    a CPU tensor.  A CUDA tensor raises: reading it would synchronize."""
+    if isinstance(base_index, torch.Tensor):
+        if base_index.device.type != "cpu":
+            raise ValueError("base_index must live on the host (it is known: base + chunk)")
+        return int(base_index)
+    return int(base_index)
+
+
+def check_index_range(base: int, L: int) -> None:
+    """The kernels' int32 sample indices hold global indices base .. base + L."""
+    if base < 0 or base + L >= _I32_LIMIT:
+        raise ValueError(f"base_index {base} + L {L} leaves the int32 index range")
+
+
+def _history(hist: torch.Tensor | None, lead: tuple, what: str) -> torch.Tensor | None:
+    """A right-aligned history as a contiguous float32 tensor (lead..., Hh)."""
+    if hist is None:
+        return None
+    if tuple(hist.shape[:-1]) != lead:
+        raise ValueError(f"{what} must be {lead} + (width,), got {tuple(hist.shape)}")
+    return hist.to(torch.float32).contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _count(fn, *modes: str) -> None:
+    fn.launches += 1
+    for m in modes:
+        fn.modes[m] += 1
+
+
+def _minn_metric(
+    x: torch.Tensor,
+    mode: str,
+    *,
+    quarter_len: int,
+    smooth_shift: int = 0,
+    threshold_value: int = 0,
+    threshold_frac_bits: int = 0,
+    base_index=0,
+    hist_init: torch.Tensor | None = None,
+    carry_init: torch.Tensor | None = None,
+    emit_state: bool = False,
+) -> MinnMetricRows:
+    """Kernel A in one of its output modes (`_A_MODES`), plain or primed."""
+    _check_input(x)
+    C, batch, L = x.shape
+    Q = quarter_len
+    base = host_index(base_index)
+    scan = mode != "corr_energy"
+    if not scan and (carry_init is not None or emit_state):
+        raise ValueError("the corr/energy mode has no smoothing register")
+    hist = _history(hist_init, (C, batch), "hist_init")
+    if carry_init is not None and tuple(carry_init.shape) != (batch,):
+        raise ValueError(f"carry_init must be ({batch},), got {tuple(carry_init.shape)}")
+    metric = dict(quarter_len=Q, smooth_shift=smooth_shift, threshold_value=threshold_value,
+                  threshold_frac_bits=threshold_frac_bits)
+    if check_kernel_device(x, *(t for t in (hist, carry_init) if t is not None)) == "cpu":
+        hist_p = None if hist is None else _planar_view(hist)
+        if not scan:
+            corr, energy = minn_rtl_corr_energy_planar(_planar_view(x), quarter_len=Q,
+                                                       hist_init=hist_p)
+            return MinnMetricRows(corr, None, energy, None, None)
+        st = minn_rtl_metric_planar(_planar_view(x), **metric, base_index=base,
+                                    hist_init=hist_p, carry_init=carry_init)
+        carry_out = None
+        if emit_state:
+            carry_out = (st.smooth_metric[:, -1] if L else
+                         torch.zeros(batch) if carry_init is None else carry_init.float())
+        wanted = _A_MODES[mode]
+        pick = lambda name, t: t if name in wanted else None  # noqa: E731
+        return MinnMetricRows(st.corr_positive, pick("smooth", st.smooth_metric),
+                              pick("energy", st.energy_total), st.above_threshold, carry_out)
+    if not x.is_contiguous():
+        raise ValueError("kernel A needs a contiguous input")
+    halo = metric_halo(Q, smooth_shift) if scan else 3 * Q
+    smem = 2 * (halo + CHUNK) * 8 + (4 * (halo + CHUNK - 3 * Q + 1) if scan else 0)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+    check_index_range(base, L)
+    dev = x.device
+    out = {name: torch.empty((batch, L), dtype=torch.uint8 if name == "above" else torch.float32,
+                             device=dev) for name in _A_MODES[mode]}
+    carry_out = torch.zeros(batch, dtype=torch.float32, device=dev) if emit_state else None
+    carry = None if carry_init is None else carry_init.to(torch.float32).contiguous()
+    if emit_state and not L and carry is not None:
+        carry_out.copy_(carry)
+    if batch and L:
+        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+        err = build.library().minn_rtl_metric(
+            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch, L, Q,
+            halo, CHUNK, 0 if hist is None else hist.shape[-1], int(scan), base, alpha,
+            max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
+            _ptr(out.get("corr")), _ptr(out.get("smooth")), _ptr(out.get("energy")),
+            _ptr(out.get("above")), _ptr(carry_out), _stream(x))
+        build.check(err, "minn_rtl_metric")
+        primed = hist is not None or carry is not None or base != 0 or emit_state
+        _count(minn_rtl_metric, mode, *(("primed",) if primed else ()))
+    above = out.get("above")
+    return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"),
+                          None if above is None else above.view(torch.bool), carry_out)
+
+
 def minn_rtl_metric(
     x: torch.Tensor,
     *,
@@ -83,41 +226,60 @@ def minn_rtl_metric(
     smooth_shift: int,
     threshold_value: int,
     threshold_frac_bits: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    base_index=0,
+    hist_init: torch.Tensor | None = None,
+    carry_init: torch.Tensor | None = None,
+    emit_state: bool = False,
+):
     """Kernel A.  x: (C, batch, L) float32 or int16 -> (corr_positive
-    float32, above bool), each (batch, L)."""
-    _check_input(x)
-    C, batch, L = x.shape
-    Q = quarter_len
-    if check_kernel_device(x) == "cpu":
-        st = minn_rtl_metric_planar(
-            _planar_view(x), quarter_len=Q, smooth_shift=smooth_shift,
-            threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits)
-        return st.corr_positive, st.above_threshold
-    if not x.is_contiguous():
-        raise ValueError("kernel A needs a contiguous input")
-    halo = metric_halo(Q, smooth_shift)
-    smem = 2 * (halo + CHUNK) * 8
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
-    if L >= _I32_LIMIT:
-        raise ValueError("streams must be shorter than 2^31 samples")
-    corr = torch.empty((batch, L), dtype=torch.float32, device=x.device)
-    above = torch.empty((batch, L), dtype=torch.uint8, device=x.device)
-    if batch and L:
-        lib = build.library()
-        fn = lib.minn_rtl_metric_f32 if x.dtype == torch.float32 else lib.minn_rtl_metric_i16
-        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
-        err = fn(x.data_ptr(), C, batch, L, Q, halo, CHUNK, alpha, max(0, 3 * Q - 1),
-                 float(1 << threshold_frac_bits), float(threshold_value),
-                 corr.data_ptr(), above.data_ptr(), _stream(x))
-        build.check(err, "minn_rtl_metric")
-        minn_rtl_metric.launches += 1
-    return corr, above.view(torch.bool)
+    float32, above bool), each (batch, L), and with ``emit_state`` the
+    smoothing register at the last sample, carry_out (batch,) float32.
+    Primed: ``base_index`` (a host integer) is the global index of sample
+    0, ``hist_init`` (C, batch, <=H) float32 the samples before it,
+    right-aligned, ``carry_init`` (batch,) the register before it."""
+    o = _minn_metric(x, "corr_above", quarter_len=quarter_len, smooth_shift=smooth_shift,
+                     threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+                     base_index=base_index, hist_init=hist_init, carry_init=carry_init,
+                     emit_state=emit_state)
+    return (o.corr, o.above, o.carry_out) if emit_state else (o.corr, o.above)
 
 
 minn_rtl_metric.launches = 0
+minn_rtl_metric.modes = collections.Counter()
+
+
+def minn_rtl_metric_planar_fused(
+    x: torch.Tensor,
+    *,
+    quarter_len: int,
+    smooth_shift: int,
+    threshold_value: int,
+    threshold_frac_bits: int,
+    base_index=0,
+    hist_init: torch.Tensor | None = None,
+    carry_init: torch.Tensor | None = None,
+) -> MinnRTLFastState:
+    """#3: kernel A's full metric on the channel-leading layout (the
+    counterpart of `minn_rtl_metric_planar_pallas(channel_leading=True)`):
+    corr_positive, smooth_metric, energy_total float32 and above_threshold
+    bool, each (batch, L).  Primed as `minn_rtl_metric`."""
+    o = _minn_metric(x, "full", quarter_len=quarter_len, smooth_shift=smooth_shift,
+                     threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+                     base_index=base_index, hist_init=hist_init, carry_init=carry_init)
+    return MinnRTLFastState(corr_positive=o.corr, smooth_metric=o.smooth,
+                            energy_total=o.energy, above_threshold=o.above,
+                            valid_from=max(0, 3 * quarter_len - 1))
+
+
+def minn_rtl_corr_energy_planar_fused(
+    x: torch.Tensor, *, quarter_len: int, hist_init: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """#4: kernel A without the IIR (the counterpart of
+    `minn_rtl_corr_energy_planar_pallas(channel_leading=True)`): x (C,
+    batch, L) -> (corr_positive, energy_total), each (batch, L) float32.
+    ``hist_init`` (C, batch, <=H): the samples before sample 0."""
+    o = _minn_metric(x, "corr_energy", quarter_len=quarter_len, hist_init=hist_init)
+    return o.corr, o.energy
 
 
 def gate_events(
@@ -129,36 +291,52 @@ def gate_events(
     valid_from: int = 0,
     tie: str = "first",
     emit_unclosed: bool = True,
-) -> GateEvents:
+    base_index=0,
+    stream_len_global: int | None = None,
+    gate_init: torch.Tensor | None = None,
+    emit_state: bool = False,
+):
     """Kernel B.  above bool (batch, L), track float32 (batch, L) ->
     `GateEvents` (batch, max_events); same semantics as
-    `ops.detect.extract_gate_events`."""
-    return _gate_events(above, track, (), hysteresis=hysteresis, max_events=max_events,
-                        valid_from=valid_from, tie=tie, emit_unclosed=emit_unclosed)[0]
+    `ops.detect.extract_gate_events`.  Carried state (`ops.detect.
+    extract_gate_events_carried`): sample 0 has the global index
+    ``base_index``, ``stream_len_global`` is the global length of the close
+    rule, ``gate_init`` (batch, 2) int32 [last-above, cluster count] primes
+    the gate; with ``emit_state`` returns (table, gate_out (batch, 2))."""
+    table, _, gate_out = _gate_events(
+        above, track, (), hysteresis=hysteresis, max_events=max_events, valid_from=valid_from,
+        tie=tie, emit_unclosed=emit_unclosed, base_index=base_index,
+        stream_len_global=stream_len_global, gate_init=gate_init, emit_state=emit_state)
+    return (table, gate_out) if emit_state else table
 
 
 gate_events.launches = 0
+gate_events.modes = collections.Counter()
 
 
 def gate_events_capture(
     above: torch.Tensor,
     track: torch.Tensor,
     extras: tuple[torch.Tensor, ...],
+    *,
+    emit_state: bool = False,
     **kw,
-) -> tuple[GateEvents, torch.Tensor]:
+):
     """Kernel B with peak capture: `gate_events` plus each of the up to
     three float32 (batch, L) ``extras`` read at every slot's peak index ->
     (table, captured (batch, len(extras), max_events)), zero where the slot
-    holds no gate; same semantics as
+    holds no gate, and gate_out with ``emit_state``; same semantics as
     `ops.detect.extract_gate_events_capture`.  Counts on
     ``gate_events.launches``."""
     if not 1 <= len(extras) <= 3:
         raise ValueError("kernel B captures one to three channels")
-    return _gate_events(above, track, tuple(extras), **kw)
+    table, cap, gate_out = _gate_events(above, track, tuple(extras), emit_state=emit_state, **kw)
+    return (table, cap, gate_out) if emit_state else (table, cap)
 
 
 def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0,
-                 tie="first", emit_unclosed=True):
+                 tie="first", emit_unclosed=True, base_index=0, stream_len_global=None,
+                 gate_init=None, emit_state=False):
     if tie not in ("first", "last"):
         raise ValueError("tie must be 'first' or 'last'")
     if not 1 <= max_events <= MAX_EVENTS:
@@ -167,23 +345,32 @@ def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0
         raise ValueError("above and track must both be (batch, L)")
     if any(e.shape != track.shape for e in extras):
         raise ValueError("every captured channel must be (batch, L) like track")
+    batch, L = above.shape
+    if gate_init is not None and tuple(gate_init.shape) != (batch, 2):
+        raise ValueError(f"gate_init must be ({batch}, 2), got {tuple(gate_init.shape)}")
+    base = host_index(base_index)
+    Lg = base + L if stream_len_global is None else int(stream_len_global)
     kw = dict(hysteresis=hysteresis, max_events=max_events, valid_from=valid_from,
               tie=tie, emit_unclosed=emit_unclosed)
-    if check_kernel_device(above, track, *extras) == "cpu":
-        if extras:
-            return extract_gate_events_capture(above, track, extras, **kw)
-        return extract_gate_events(above, track, **kw), None
+    carried = gate_init is not None or base != 0 or stream_len_global is not None or emit_state
+    tensors = (above, track, *extras, *(() if gate_init is None else (gate_init,)))
+    if check_kernel_device(*tensors) == "cpu":
+        return extract_gate_events_carried(above, track, extras, base_index=base,
+                                           stream_len_global=Lg, gate_init=gate_init, **kw)
     if above.dtype != torch.bool or any(t.dtype != torch.float32 for t in (track, *extras)):
         raise TypeError("kernel B takes bool above and float32 track and channels")
     if not all(t.is_contiguous() for t in (above, track, *extras)):
         raise ValueError("kernel B needs contiguous inputs")
-    batch, L = above.shape
-    if L >= _I32_LIMIT:
-        raise ValueError("streams must be shorter than 2^31 samples")
+    check_index_range(base, L)
+    if not 0 <= Lg < 2**31:
+        raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
     dev, E = track.device, max_events
     cap = torch.empty((batch, len(extras), E), dtype=torch.float32, device=dev)
+    ginit = None if gate_init is None else gate_init.to(torch.int32).contiguous()
+    gate_out = torch.empty((batch, 2), dtype=torch.int32, device=dev) if emit_state else None
     if batch == 0:
-        return empty_table((0,), max_events, track.dtype, dev), (cap if extras else None)
+        return (empty_table((0,), max_events, track.dtype, dev), (cap if extras else None),
+                gate_out)
     new = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
     valid, closed = new(torch.uint8, batch, E), new(torch.uint8, batch, E)
     start, close, pidx = (new(torch.int32, batch, E) for _ in range(3))
@@ -194,14 +381,15 @@ def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0
         above.data_ptr(), track.data_ptr(), batch, L, valid_from, max(int(hysteresis), 1), E,
         int(tie == "last"), int(emit_unclosed), valid.data_ptr(), closed.data_ptr(),
         start.data_ptr(), close.data_ptr(), pidx.data_ptr(), pval.data_ptr(), count.data_ptr(),
-        overflow.data_ptr(), *ex, len(extras), cap.data_ptr(), _stream(track))
+        overflow.data_ptr(), *ex, len(extras), cap.data_ptr(), base, Lg, _ptr(ginit),
+        _ptr(gate_out), _stream(track))
     build.check(err, "gate_events")
-    gate_events.launches += 1
+    _count(gate_events, *(("primed",) if carried else ()))
     table = GateEvents(
         valid=valid.view(torch.bool), closed=closed.view(torch.bool),
         gate_start=start, gate_close=close, peak_idx=pidx, peak_value=pval,
         count=count, overflow=overflow.view(torch.bool))
-    return table, (cap if extras else None)
+    return table, (cap if extras else None), gate_out
 
 
 def minn_rtl_detect_fused(
@@ -215,19 +403,62 @@ def minn_rtl_detect_fused(
     max_events: int = 8,
     tie: str = "last",
     emit_unclosed: bool = False,
-) -> GateEvents:
-    """Fused Minn-RTL detection on the channel-leading layout.
+    base_index=None,
+    stream_len_global: int | None = None,
+    shard_init: tuple | None = None,
+    emit_state: bool = False,
+):
+    """Fused Minn-RTL detection on the channel-leading layout (#1, #2).
 
     x: (2*branches, batch, L) float32 or int16, rows [b0_i, b0_q, b1_i,
     b1_q, ...] (the layout of `minn_rtl_detect_fused_pallas(
     channel_leading=True)`).  Returns `GateEvents` of shape (batch,
     max_events), peak-tracking corr_positive.  CUDA: kernel A then kernel
-    B; CPU: the plain versions of both."""
+    B; CPU: the plain versions of both.
+
+    Carried state, as `minn_rtl_detect_fused_pallas`: ``base_index`` (a
+    host integer) is the global index of sample 0, ``stream_len_global``
+    the global length for close/closed semantics, ``shard_init`` =
+    (hist_init (C, batch, <=H) float32, carry_init (batch,) float32,
+    gate_init (batch, 2) int32 [last-above global index, open-gate flag])
+    primes the chunk; with ``emit_state`` returns ``(table, (carry_out
+    (batch,), gate_out (batch, 2) [last-above, cluster count]))``."""
     _check_input(x)
-    corr, above = minn_rtl_metric(
+    hist, carry, ginit = (None, None, None) if shard_init is None else shard_init
+    base = 0 if base_index is None else host_index(base_index)
+    corr, above, *carry_out = minn_rtl_metric(
+        x, quarter_len=quarter_len, smooth_shift=smooth_shift,
+        threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+        base_index=base, hist_init=hist, carry_init=carry, emit_state=emit_state)
+    out = gate_events(
+        above, corr, hysteresis=hysteresis, max_events=max_events,
+        valid_from=max(0, 3 * quarter_len - 1), tie=tie, emit_unclosed=emit_unclosed,
+        base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
+        emit_state=emit_state)
+    if emit_state:
+        table, gate_out = out
+        return table, (carry_out[0], gate_out)
+    return out
+
+
+def minn_rtl_detect_planar_fused(
+    x: torch.Tensor,
+    *,
+    quarter_len: int,
+    smooth_shift: int,
+    threshold_value: int,
+    threshold_frac_bits: int,
+    hysteresis: int,
+    max_events: int = 8,
+) -> tuple[MinnRTLFastState, GateEvents]:
+    """The counterpart of `minn_rtl_detect_planar_pallas` on the
+    channel-leading layout: kernel A's full metric (#3), then kernel B on
+    its above and corr_positive (tie 'last', closed events only).  Returns
+    (MinnRTLFastState, GateEvents) with a leading batch axis."""
+    st = minn_rtl_metric_planar_fused(
         x, quarter_len=quarter_len, smooth_shift=smooth_shift,
         threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits)
-    return gate_events(
-        above, corr, hysteresis=hysteresis, max_events=max_events,
-        valid_from=max(0, 3 * quarter_len - 1), tie=tie,
-        emit_unclosed=emit_unclosed)
+    table = gate_events(st.above_threshold, st.corr_positive, hysteresis=hysteresis,
+                        max_events=max_events, valid_from=st.valid_from, tie="last",
+                        emit_unclosed=False)
+    return st, table

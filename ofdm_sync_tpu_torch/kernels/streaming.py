@@ -2,7 +2,8 @@
 
 These are the plain versions of the CUDA kernels in `kernels/csrc/`:
 
-* Minn-RTL: the metric (kernel A, `minn_rtl_metric.cu`) and the gate/event
+* Minn-RTL: the metric (kernel A, `minn_rtl_metric.cu`, and its
+  corr/energy mode `minn_rtl_corr_energy_planar`) and the gate/event
   extraction (kernel B, `gate_events.cu`, plain form
   `ops.detect.extract_gate_events`).  The quarter products and powers are
   combined over branches and I/Q planes first (the window sums are linear,
@@ -19,6 +20,13 @@ These are the plain versions of the CUDA kernels in `kernels/csrc/`:
   normalization, branch sum, magnitude).  Energies and local sums come
   from float64 cumulative sums cast once to float32; on integer-valued IQ
   the magnitude agrees with kernel D bit for bit.
+
+Primed mode (the kernels' carried state, `pallas_minn.py:_detect_kernel`
+and its AA / ZC twins with ``base_index`` / ``shard_init``): ``hist`` holds
+the samples just before the call, right-aligned (its last column is the
+sample before sample 0), ``base_index`` is the global index of sample 0
+(validity compares global indices) and, for Minn-RTL, ``carry_init`` is the
+smoothing register before sample 0.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from ofdm_sync_tpu_torch.ops.detect import GateEvents, extract_gate_events
 from ofdm_sync_tpu_torch.ops.windows import (
     exp_smooth_shift,
+    linear_recurrence,
     running_sum_stream,
     shift_right,
 )
@@ -43,6 +52,29 @@ class MinnRTLFastState(NamedTuple):
     valid_from: int
 
 
+def _with_history(x: torch.Tensor, hist: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """``[hist | x]`` along the last axis (float32) and the history width."""
+    x = x.to(torch.float32)
+    if hist is None:
+        return x, 0
+    return torch.cat([hist.to(torch.float32), x], dim=-1), hist.shape[-1]
+
+
+def minn_rtl_corr_energy_planar(
+    iq: torch.Tensor, *, quarter_len: int, hist_init: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A's corr/energy mode (`pallas_minn.py:_corr_energy_kernel`):
+    iq (..., branches, 2, L) float32 or int16 (int16 ADC codes are exact in
+    float32 and converted first), optional right-aligned history (...,
+    branches, 2, Hh) -> (corr_positive, energy_total), each (..., L)."""
+    Q = quarter_len
+    x, H = _with_history(iq, hist_init)
+    u = (x * shift_right(x, Q)).sum(dim=(-3, -2))  # quarter product
+    p = (x * x).sum(dim=(-3, -2))                   # instantaneous power
+    corr_positive = running_sum_stream(u, 2 * Q).clamp_min(0.0)
+    return corr_positive[..., H:], running_sum_stream(p, 3 * Q)[..., H:]
+
+
 def minn_rtl_metric_planar(
     iq: torch.Tensor,
     *,
@@ -50,20 +82,31 @@ def minn_rtl_metric_planar(
     smooth_shift: int,
     threshold_value: int,
     threshold_frac_bits: int,
+    base_index: int = 0,
+    hist_init: torch.Tensor | None = None,
+    carry_init: torch.Tensor | None = None,
 ) -> MinnRTLFastState:
-    """Planar Minn-RTL metric; iq: (..., branches, 2, L) float32 or int16
-    (int16 ADC codes are exact in float32 and converted first)."""
+    """Planar Minn-RTL metric; iq: (..., branches, 2, L) float32 or int16.
+    Primed mode: ``hist_init`` (..., branches, 2, Hh), ``carry_init`` (...)
+    the smoothing register before sample 0; the register then decays by
+    1 - alpha at every sample, as in the TPU kernel's `_metric_block`."""
     Q = quarter_len
-    x = iq.to(torch.float32)
-    u = (x * shift_right(x, Q)).sum(dim=(-3, -2))  # quarter product
-    p = (x * x).sum(dim=(-3, -2))                   # instantaneous power
-    corr_positive = running_sum_stream(u, 2 * Q).clamp_min(0.0)
-    energy_total = running_sum_stream(p, 3 * Q)
+    corr_positive, energy_total = minn_rtl_corr_energy_planar(
+        iq, quarter_len=Q, hist_init=hist_init)
 
     valid_from = max(0, 3 * Q - 1)
     n = corr_positive.shape[-1]
-    metric_valid = torch.arange(n, device=x.device) >= valid_from
-    smooth = exp_smooth_shift(corr_positive, smooth_shift, update_mask=metric_valid)
+    metric_valid = base_index + torch.arange(n, device=corr_positive.device) >= valid_from
+    if carry_init is None:
+        smooth = exp_smooth_shift(corr_positive, smooth_shift, update_mask=metric_valid)
+    else:
+        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+        b = torch.where(metric_valid, alpha * corr_positive, torch.zeros_like(corr_positive))
+        carry = carry_init.to(torch.float32).unsqueeze(-1)
+        a = torch.full_like(b, 1.0 - alpha)
+        # s[-1] = carry: a leading constant map (a = 0, b = carry)
+        smooth = linear_recurrence(torch.cat([torch.zeros_like(carry), a], dim=-1),
+                                   torch.cat([carry, b], dim=-1))[..., 1:]
     above = metric_valid & (
         smooth * float(1 << threshold_frac_bits) >= energy_total * float(threshold_value)
     )
@@ -116,38 +159,44 @@ class AAFastState(NamedTuple):
     valid: torch.Tensor  # bool, True from n >= L
 
 
-def aa_metric_planar(iq: torch.Tensor, L: int) -> AAFastState:
-    """Planar [A][A] metric; iq: (..., branches, 2, n) float32 or int16.
+def aa_metric_planar(iq: torch.Tensor, L: int, *, base_index: int = 0,
+                     hist: torch.Tensor | None = None) -> AAFastState:
+    """Planar [A][A] metric; iq: (..., branches, 2, n) float32 or int16,
+    optional right-aligned history ``hist`` (..., branches, 2, Hh).
 
     ``P = sum_window x[n] conj(x[n-L])`` with re = i*i_d + q*q_d and
     im = q*i_d - i*q_d, and ``R`` the window power, each combined over
-    branches.  Products are exact in float64 for float32 input."""
-    x = iq.to(torch.float64)
+    branches.  Products are exact in float64 for float32 input.  Valid
+    from global index ``base_index + n >= L``."""
+    x, H = _with_history(iq, hist)
+    x = x.to(torch.float64)
     i, q = x[..., 0, :], x[..., 1, :]
     i_d, q_d = shift_right(i, L), shift_right(q, L)
     pre = (i * i_d + q * q_d).sum(dim=-2)
     pim = (q * i_d - i * q_d).sum(dim=-2)
     pw = (i * i + q * q).sum(dim=-2)
-    P_re, P_im, R = (running_sum_stream(u, L).to(torch.float32) for u in (pre, pim, pw))
-    M, valid = _aa_normalized(P_re * P_re + P_im * P_im, R, L)
+    P_re, P_im, R = (running_sum_stream(u, L)[..., H:].to(torch.float32)
+                     for u in (pre, pim, pw))
+    M, valid = _aa_normalized(P_re * P_re + P_im * P_im, R, L, base_index)
     return AAFastState(P_re=P_re, P_im=P_im, R=R, M=M, valid=valid)
 
 
 def aa_detect_step(P_re: torch.Tensor, P_im: torch.Tensor, R: torch.Tensor, L: int,
-                   threshold: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   threshold: float, base_index: int = 0,
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused detector's gate input (`pallas_aa.py:_aa_kernel`): returns
     ``track = P_re^2 + P_im^2`` (the peak is tracked on |P|^2, not on M),
     ``M`` and ``above = n >= L & M >= threshold``.  Each operation rounds
     once in float32, as in kernel C."""
     track = P_re * P_re + P_im * P_im
-    M, valid = _aa_normalized(track, R, L)
+    M, valid = _aa_normalized(track, R, L, base_index)
     return track, M, valid & (M >= threshold)
 
 
-def _aa_normalized(track: torch.Tensor, R: torch.Tensor, L: int):
-    """``M = min(track / max(R, 1e-12)^2, 1)`` where ``n >= L`` and
-    ``R > 1e-6 L``, else 0; returns (M, valid)."""
-    valid = torch.arange(R.shape[-1], device=R.device) >= L
+def _aa_normalized(track: torch.Tensor, R: torch.Tensor, L: int, base_index: int = 0):
+    """``M = min(track / max(R, 1e-12)^2, 1)`` where ``base_index + n >= L``
+    and ``R > 1e-6 L``, else 0; returns (M, valid)."""
+    valid = base_index + torch.arange(R.shape[-1], device=R.device) >= L
     Rc = R.clamp_min(1e-12)
     M = torch.where(valid & (R > 1e-6 * L), (track / (Rc * Rc)).clamp_max(1.0),
                     torch.zeros_like(R))
@@ -159,13 +208,17 @@ def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def cfar_gate(mag: torch.Tensor, *, corr_window: int, threshold_value: int,
-              threshold_frac_bits: int, min_corr_mag: float):
-    """The ZC CFAR gate input (`pallas_zc.py:116-121`): ``n >= W`` and
-    ``mag * 2^frac >= local_sum * T`` and ``mag >= min_corr_mag``, with the
-    W-window local sum from a float64 cumulative sum cast once to float32
-    and every product rounded once in float32.  Returns (above, local_sum)."""
-    local_sum = running_sum_stream(mag, corr_window)
-    n = torch.arange(mag.shape[-1], device=mag.device)
+              threshold_frac_bits: int, min_corr_mag: float, base_index: int = 0,
+              hist: torch.Tensor | None = None):
+    """The ZC CFAR gate input (`pallas_zc.py:116-121`): ``base_index + n >=
+    W`` and ``mag * 2^frac >= local_sum * T`` and ``mag >= min_corr_mag``,
+    with the W-window local sum (over the right-aligned magnitude history
+    ``hist`` (..., Hh) before sample 0, else zeros) from a float64
+    cumulative sum cast once to float32 and every product rounded once in
+    float32.  Returns (above, local_sum)."""
+    ext, H = _with_history(mag, hist)
+    local_sum = running_sum_stream(ext, corr_window)[..., H:]
+    n = base_index + torch.arange(mag.shape[-1], device=mag.device)
     above = ((n >= corr_window)
              & (mag * _f32(float(1 << threshold_frac_bits), mag)
                 >= local_sum * _f32(float(threshold_value), mag))

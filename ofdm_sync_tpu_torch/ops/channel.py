@@ -17,10 +17,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import ofdm_sync_tpu
-
-#: the measured CIR bank is shared with the JAX package, read in place
-_DATA_DIR = Path(ofdm_sync_tpu.__file__).resolve().parent / "data"
+#: the port's copy of the measured CIR bank (byte for byte the JAX package's)
+_DATA_DIR = Path(__file__).resolve().parent.parent / "data"
 
 @lru_cache(maxsize=None)
 def load_measured_cir(name: str) -> np.ndarray:

@@ -11,7 +11,9 @@ indices and per-slot reductions over a static event capacity.
 `extract_gate_events` is the plain PyTorch version of the CUDA gate/event
 kernel (`kernels/csrc/gate_events.cu`), and `extract_gate_events_capture`
 that of its peak-capture mode; both work on the last axis and broadcast
-over leading batch axes.
+over leading batch axes.  `extract_gate_events_carried` is that of its
+carried-state mode (the chunk of a stream, `pallas_minn.py:_detect_kernel`
+with base_index / stream_len_global / shard_init / emit_state).
 """
 
 from __future__ import annotations
@@ -107,38 +109,80 @@ def extract_gate_events_capture(
     """`extract_gate_events` plus each ``extras`` array (..., n) read at every
     slot's peak index: returns (table, captured (..., len(extras), E)),
     zero where the slot holds no gate (``pallas_common.event_finalize``)."""
-    table, exists = _extract(above, track, **kw)
-    if above.shape[-1] == 0:
-        return table, torch.zeros(exists.shape[:-1] + (len(extras),) + exists.shape[-1:],
-                                  dtype=track.dtype, device=track.device)
-    idx = table.peak_idx.to(torch.int64)
-    cap = [torch.where(exists, a.gather(-1, idx), 0.0) for a in extras]
-    return table, torch.stack(cap, dim=-2)
+    table, exists, _ = _extract(above, track, **kw)
+    return table, _capture(table, exists, extras)
+
+
+def extract_gate_events_carried(
+    above: torch.Tensor,
+    track: torch.Tensor,
+    extras: tuple[torch.Tensor, ...] = (),
+    *,
+    base_index: int,
+    stream_len_global: int | None = None,
+    gate_init: torch.Tensor | None = None,
+    **kw,
+) -> tuple[GateEvents, torch.Tensor | None, torch.Tensor]:
+    """`extract_gate_events[_capture]` on the chunk of a stream whose
+    sample 0 has the global index ``base_index``: every index in the table
+    is global; ``stream_len_global`` (default: base + n) replaces the length
+    in the close rule and masks above samples at or past it; peaks are
+    tracked below min(stream_len_global, base + n); ``gate_init`` (..., 2)
+    int32 [last-above global index, cluster count] primes the gate state
+    (default [-1, 0]).  Returns (table, captured or None, gate_out (..., 2)
+    int32 [last-above, cluster count] after the last sample)."""
+    table, exists, gate_out = _extract(
+        above, track, base_index=base_index, stream_len_global=stream_len_global,
+        gate_init=gate_init, **kw)
+    return table, (_capture(table, exists, extras, base_index) if extras else None), gate_out
+
+
+def _capture(table, exists, extras, base_index=0):
+    """Each channel of ``extras`` read at every existing slot's peak."""
+    n = extras[0].shape[-1]
+    if n == 0:
+        return torch.zeros(exists.shape[:-1] + (len(extras),) + exists.shape[-1:],
+                           dtype=extras[0].dtype, device=exists.device)
+    local = table.peak_idx.to(torch.int64) - base_index
+    ok = exists & (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1)
+    return torch.stack([torch.where(ok, a.gather(-1, idx), 0.0) for a in extras], dim=-2)
 
 
 def _extract(above, track, *, hysteresis, max_events=8, valid_from=0, tie="first",
-             emit_unclosed=True) -> tuple[GateEvents, torch.Tensor]:
-    """The table and its ``exists`` mask (slot < gates found)."""
+             emit_unclosed=True, base_index=0, stream_len_global=None, gate_init=None,
+             ) -> tuple[GateEvents, torch.Tensor, torch.Tensor]:
+    """The table, its ``exists`` mask (slot < gates found) and the gate
+    carry after the last sample (see `extract_gate_events_carried`)."""
     if tie not in ("first", "last"):
         raise ValueError("tie must be 'first' or 'last'")
     n = above.shape[-1]
     h = max(int(hysteresis), 1)
     lead = tuple(above.shape[:-1])
     dev = above.device
+    i64 = torch.int64
+    if gate_init is None:
+        la0 = torch.full(lead + (1,), -1, dtype=i64, device=dev)
+        cnt0 = torch.zeros(lead + (1,), dtype=i64, device=dev)
+    else:
+        la0, cnt0 = gate_init[..., 0:1].to(i64), gate_init[..., 1:2].to(i64)
     if n == 0:
         return (empty_table(lead, max_events, track.dtype, dev),
-                torch.zeros(lead + (max_events,), dtype=torch.bool, device=dev))
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    above = above.to(torch.bool) & (idx >= valid_from)
+                torch.zeros(lead + (max_events,), dtype=torch.bool, device=dev),
+                torch.cat([la0, cnt0], dim=-1).to(torch.int32))
+    Lg = base_index + n if stream_len_global is None else stream_len_global
+    track_end = min(Lg, base_index + n)
+    idx = base_index + torch.arange(n, dtype=i64, device=dev)
+    above = above.to(torch.bool) & (idx >= valid_from) & (idx < Lg)
 
-    last_above = _last_above(above, idx)
+    last_above = torch.maximum(_last_above(above, idx), la0)
     below_run = idx - last_above
-    prev_above = torch.cat(
-        [torch.full(lead + (1,), -1, dtype=torch.int64, device=dev),
-         last_above[..., :-1]], dim=-1)
+    prev_above = torch.maximum(torch.cat(
+        [torch.full(lead + (1,), -1, dtype=i64, device=dev),
+         last_above[..., :-1]], dim=-1), la0)
     new_cluster = above & ((prev_above < 0) | (idx - prev_above > h))
-    cluster_id = torch.cumsum(new_cluster, dim=-1)  # 1-based, int64
-    in_gate = (last_above >= 0) & (below_run <= h) & (cluster_id >= 1)
+    cluster_id = cnt0 + torch.cumsum(new_cluster, dim=-1)  # 1-based, int64
+    in_gate = (last_above >= 0) & (below_run <= h) & (cluster_id >= 1) & (idx < track_end)
 
     neg_inf = torch.tensor(float("-inf"), dtype=track.dtype, device=dev)
     starts, pvals, pidxs, lasts = [], [], [], []
@@ -153,13 +197,13 @@ def _extract(above, track, *, hysteresis, max_events=8, valid_from=0, tie="first
             pi = torch.argmax(masked, dim=-1)
         pvals.append(masked.gather(-1, pi.unsqueeze(-1)).squeeze(-1))
         any_m = m.any(dim=-1)
-        pidxs.append(torch.where(any_m, pi, -1 if tie == "last" else _I32_MAX))
+        pidxs.append(torch.where(any_m, base_index + pi, -1 if tie == "last" else _I32_MAX))
         lasts.append(torch.where(above & (cluster_id == c), idx, -1).amax(dim=-1))
     gate_start = torch.stack(starts, dim=-1)
     peak_val = torch.stack(pvals, dim=-1)
     peak_idx = torch.stack(pidxs, dim=-1)
     close_raw = torch.stack(lasts, dim=-1) + h
-    closed = close_raw <= n - 1
+    closed = close_raw <= Lg - 1
 
     total = cluster_id[..., -1]
     slot = torch.arange(max_events, device=dev)
@@ -171,13 +215,13 @@ def _extract(above, track, *, hysteresis, max_events=8, valid_from=0, tie="first
         valid=valid,
         closed=closed & exists,
         gate_start=torch.where(exists, gate_start, zero).to(i32),
-        gate_close=torch.where(exists, close_raw.clamp(0, n - 1), zero).to(i32),
+        gate_close=torch.where(exists, close_raw.clamp(0, Lg - 1), zero).to(i32),
         peak_idx=torch.where(exists, peak_idx, zero).to(i32),
         peak_value=torch.where(exists, peak_val, torch.zeros((), dtype=track.dtype,
                                                              device=dev)),
         count=valid.sum(dim=-1, dtype=i32),
         overflow=total > max_events,
-    ), exists
+    ), exists, torch.stack([last_above[..., -1], total], dim=-1).to(i32)
 
 
 def gate_open_mask(above: torch.Tensor, hysteresis: int,

@@ -302,7 +302,7 @@ def add_cli_args(ap) -> None:
     ap.add_argument("--cfo", type=float, default=None)
     ap.add_argument("--preamble-len", type=int, default=PREAMBLE_LEN)
     ap.add_argument("--num-frames", type=int, default=1)
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
 
 
 def run_cli(args) -> FusedRxResult:

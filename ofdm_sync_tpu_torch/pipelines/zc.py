@@ -1,14 +1,17 @@
 """Zadoff-Chu time-domain matched-filter simulation (port of
 `ofdm_sync_tpu.pipelines.zc`; reference zc.py:57-283), without the plots.
 
-Run: ``python -m ofdm_sync_tpu_torch zc``.  The detector D5 has no kernel;
-the run is plain PyTorch on the CPU.
+Run: ``python -m ofdm_sync_tpu_torch zc [--device cpu]``.  The detector D5
+has no kernel: the run is plain PyTorch on ``device`` (the card unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ofdm_sync_tpu_torch.device import resolve_device
 from ofdm_sync_tpu_torch.models.detectors import ZCTimeDetector
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
 from ofdm_sync_tpu_torch.params import SYS_30M72
@@ -19,7 +22,8 @@ SNR_DB = 10.0
 CFO_HZ = 1000.0
 
 
-def run_simulation(channel_name: str | None, plots_subdir: str | None = None) -> dict:
+def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
+                   device: torch.device | str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> ZC
     matched filter -> CFO / LS EQ / EVM; prints the reference's report and
     returns its numbers.  ``plots_subdir`` must be None: plots are not
@@ -33,7 +37,8 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None) ->
     # preamble = PSS symbol WITHOUT CP (reference zc.py:78)
     setup = common.build_setup(
         build_pss_symbol(sys, include_cp=False), rng, sys=sys, channel_name=channel_name,
-        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ)
+        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ,
+        device=resolve_device(device))
 
     out = det.detect(setup.rx)
     peak_index = out["peak_index"]
@@ -67,10 +72,10 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None) ->
     }
 
 
-def main() -> None:
+def main(device: torch.device | str | None = None) -> None:
     report.banner("ZADOFF-CHU SYNCHRONIZATION - DUAL CONDITION ANALYSIS")
-    run_simulation(channel_name="cir1")
-    run_simulation(channel_name=None)
+    run_simulation(channel_name="cir1", device=device)
+    run_simulation(channel_name=None, device=device)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

@@ -1,12 +1,12 @@
 """ZC streaming CFAR simulation (port of `ofdm_sync_tpu.pipelines.zc_v2`;
 reference zc_v2.py:519-787), without the plots.
 
-The run detects on the CPU with `ZCStreamingDetector.detect`, the
-reference path in plain PyTorch, as the JAX pipeline does; the fused paths
-(`detect_fused`, `detect_fused_iq`, kernels D, E and B on a card) give the
-same events.
+The run detects with `ZCStreamingDetector.detect`, the reference path in
+plain PyTorch, on ``device`` (the card unless the caller asks for the
+CPU), as the JAX pipeline does; the fused paths (`detect_fused`,
+`detect_fused_iq`, kernels D, E and B on a card) give the same events.
 
-Run: ``python -m ofdm_sync_tpu_torch zc_v2``.
+Run: ``python -m ofdm_sync_tpu_torch zc_v2 [--device cpu]``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ofdm_sync_tpu_torch.device import resolve_device
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
 from ofdm_sync_tpu_torch.params import SYS_30M72, ZCStreamingParams
@@ -24,7 +25,8 @@ SNR_DB = 10.0
 CFO_HZ = 1000.0
 
 
-def run_simulation(channel_name: str | None, plots_subdir: str | None = None) -> dict:
+def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
+                   device: torch.device | str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> CFAR
     detection, strongest event -> CFO / LS EQ / EVM; prints the reference's
     report and returns its numbers.  ``plots_subdir`` must be None: plots
@@ -38,7 +40,8 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None) ->
 
     setup = common.build_setup(
         build_pss_symbol(sys, include_cp=False), rng, sys=sys, channel_name=channel_name,
-        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ)
+        cir_mode="two", snr_db=SNR_DB, cfo_hz=CFO_HZ,
+        device=resolve_device(device))
 
     result = det.detect(setup.rx)
     true_start = setup.true_cp_start
@@ -94,10 +97,10 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None) ->
     }
 
 
-def main() -> None:
+def main(device: torch.device | str | None = None) -> None:
     report.banner("ZC V2 DETECTION - FPGA-FRIENDLY ADAPTIVE THRESHOLD")
-    run_simulation(channel_name=None)
-    run_simulation(channel_name="cir1")
+    run_simulation(channel_name=None, device=device)
+    run_simulation(channel_name="cir1", device=device)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

@@ -47,7 +47,7 @@ def test_receive_chain_matches_jax(capsys, channel, frames):
     kw = dict(snr_db=10.0, channel_name=channel, num_frames=frames)
     jr = j_run(**kw)
     jout = capsys.readouterr().out
-    tr = t_run(**kw)
+    tr = t_run(**kw, device="cpu")
     tout = capsys.readouterr().out
     assert jr.detected and tr.detected
     assert len(jr.frames) == len(tr.frames) == frames
@@ -60,14 +60,14 @@ def test_receive_chain_matches_jax(capsys, channel, frames):
 
 
 def test_cli_defaults_to_the_aa_chain(capsys):
-    assert t_main(["fused_rx", "--snr", "10", "--num-frames", "2"]) == 0
+    assert t_main(["fused_rx", "--snr", "10", "--num-frames", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[A][A] 1024, AWGN, SNR +10 dB" in out and "Frame 1:" in out
 
 
 def test_cli_preamble_length(capsys):
     assert t_main(["fused_rx", "--family", "aa", "--preamble-len", "512", "--channel",
-                   "cir2"]) == 0
+                   "cir2", "--device", "cpu"]) == 0
     assert "[A][A] 512, CIR2" in capsys.readouterr().out
 
 
@@ -111,6 +111,7 @@ def _check_cell(ref):
         preamble_length=ref["preamble_length"],
         cfo_hz=ref["cfo_applied_hz"],
         seed=42,
+        device="cpu",
     )
     assert bool(got.detected) == bool(ref["detected"])
     assert int(got.num_events) == int(ref["num_events"])
@@ -137,7 +138,8 @@ def test_grid_cell_matches_reference_full(ref):
 
 def test_run_grid_test_and_summary(capsys):
     results = aa.run_grid_test(snr_values=(0, 15), channels=(None,),
-                               full_scale_ratios=(1.0,), preamble_lengths=(1024,))
+                               full_scale_ratios=(1.0,), preamble_lengths=(1024,),
+                               device="cpu")
     aa.print_summary_table(results)
     out = capsys.readouterr().out
     assert len(results) == 2 and "[  2/2] L=512 awgn" in out
@@ -173,7 +175,8 @@ def _jax_outcomes(iq, L):
 @pytest.mark.parametrize("channel", [None, "cir1"])
 def test_fused_sweep_matches_jax_kernel(channel):
     snr, fsr = (-5.0, 0.0, 5.0, 10.0, 15.0), (0.25, 0.5, 1.0, 1.5, 2.0)
-    out = aa.run_grid_test_fused(channel_name=channel, snr_values=snr, full_scale_ratios=fsr)
+    out = aa.run_grid_test_fused(channel_name=channel, snr_values=snr, full_scale_ratios=fsr,
+                                 device="cpu")
     x, true_start, L = aa._grid_clean_stream(1024, channel, 42, torch.device("cpu"))
     iq = aa._grid_batch(x, snr, fsr, 500.0, 42)
     assert iq.shape == (4, 25, x.shape[-1]) and iq.dtype == torch.float32
@@ -190,8 +193,9 @@ def test_fused_sweep_matches_jax_kernel(channel):
 
 
 def test_fused_sweep_is_seeded():
-    a = aa.run_grid_test_fused(snr_values=(0.0, 10.0), full_scale_ratios=(1.0,), seed=3)
-    b = aa.run_grid_test_fused(snr_values=(0.0, 10.0), full_scale_ratios=(1.0,), seed=3)
+    kw = dict(snr_values=(0.0, 10.0), full_scale_ratios=(1.0,), seed=3, device="cpu")
+    a = aa.run_grid_test_fused(**kw)
+    b = aa.run_grid_test_fused(**kw)
     for k in ("detected", "frame_start", "cfo_est", "metric_peak", "num_events"):
         np.testing.assert_array_equal(a[k], b[k])
 

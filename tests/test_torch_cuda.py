@@ -16,7 +16,11 @@ captured values.  Kernel D (the ZC CFAR gate input) must give a bit-equal
 magnitude on integer IQ, and an above bit may differ only where
 |mag*2^frac - local*T| is within 1e-6 of local*T; kernel E (the matched
 filter) must be within 1e-5 of the output peak of a complex128 FFT
-convolution.
+convolution.  The carried-state (primed) modes of A-D and the fused stream
+steps are held to their plain versions by the same rules, with smooth
+within 1e-5 of max(1, |smooth|) and the emitted smoothing register within
+1e-5 of max(1, |register|) (a register decayed toward zero differs in its
+denormals).
 """
 
 import numpy as np
@@ -28,7 +32,12 @@ from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
-from ofdm_sync_tpu_torch.kernels.launches import launch_counts, reset_launch_counts  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import streaming_chunked as ST  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
+    launch_counts,
+    mode_launch_counts,
+    reset_launch_counts,
+)
 from ofdm_sync_tpu_torch.kernels.streaming import minn_rtl_metric_planar  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import zc_cfar_planar, zc_iq_planar  # noqa: E402
@@ -36,8 +45,10 @@ from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E4
 from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import MinnRTLDetector  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
+    GateEvents,
     extract_gate_events,
     extract_gate_events_capture,
+    extract_gate_events_carried,
 )
 from ofdm_sync_tpu_torch.ops.waveforms import build_minn_rtl_preamble, build_pss_symbol  # noqa: E402
 from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
@@ -98,7 +109,7 @@ def test_cuda_detect_fused_frames_match_cpu(cuda):
     rng = np.random.default_rng(0)
     pre = build_minn_rtl_preamble("qpsk_freq", rng, Q=512)
     setup = common.build_setup(pre, rng, channel_name="cir1", cir_mode="two", snr_db=0.0,
-                               cfo_hz=1000.0, two_frames=True)
+                               cfo_hz=1000.0, two_frames=True, device="cpu")
     flen = setup.extras["frame_len"]
     det = MinnRTLDetector()
     _, f_c, s_c, v_c = det.detect_fused_frames(setup.rx, frame_len=flen)
@@ -238,7 +249,7 @@ def test_cuda_zc_paths_match_cpu(cuda):
     give the CPU `detect`'s events on the cir1 stimulus."""
     pss = build_pss_symbol()
     setup = common.build_setup(pss, np.random.default_rng(0), channel_name="cir1",
-                               cir_mode="two", snr_db=10.0, cfo_hz=1000.0)
+                               cir_mode="two", snr_db=10.0, cfo_hz=1000.0, device="cpu")
     det = ZCStreamingDetector()
     reset_launch_counts()
     outs = [det.detect_fused(setup.rx.to(cuda)), det.detect_fused_iq(setup.rx.to(cuda))]
@@ -248,3 +259,128 @@ def test_cuda_zc_paths_match_cpu(cuda):
         assert [(e.peak_index, e.detected_start) for e in out.events] == want
         assert ZCStreamingDetector.strongest(out).peak_index == 3549
     assert min(counts["zc_metric"], counts["matched_filter_ols"], counts["gate_events"]) >= 1
+
+
+# ---------------------------------------------------------------------------
+# The carried-state (primed) modes and the fused stream steps
+
+
+def _rel(out, ref):
+    return float((out.double() - ref.double()).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,dtype", [(64, torch.float32), (512, torch.int16)])
+def test_cuda_metric_modes_match_plain(cuda, q, dtype):
+    """Kernel A's full-metric, corr/energy and primed modes (history,
+    register, global base, emitted register) vs the plain versions."""
+    batch, L = 5, 5 * 4096 + 123
+    x = torch.from_numpy(_stimulus(batch, L, q, [(0, 1000), (4, L - 7 * q)])).to(dtype).to(cuda)
+    hist = torch.from_numpy(_stimulus(batch, 3 * q, q, [], seed=1)).to(cuda)
+    carry = torch.rand(batch, device=cuda) * 1e4
+    base = 123_456_789
+    pk = dict(base_index=base, hist_init=hist, carry_init=carry)
+    reset_launch_counts()
+    full = F.minn_rtl_metric_planar_fused(x, quarter_len=q, **KW, **pk)
+    corr, energy = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=q, hist_init=hist)
+    _, above, carry_out = F.minn_rtl_metric(x, quarter_len=q, **KW, **pk, emit_state=True)
+    st = minn_rtl_metric_planar(F._planar_view(x), quarter_len=q, **KW, base_index=base,
+                                hist_init=F._planar_view(hist), carry_init=carry)
+    assert _rel(full.corr_positive, st.corr_positive) <= 2e-5 and _rel(corr, st.corr_positive) <= 2e-5
+    assert torch.equal(full.energy_total, st.energy_total) and torch.equal(energy, st.energy_total)
+    assert _rel(full.smooth_metric, st.smooth_metric) <= 1e-5
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    for a in (above, full.above_threshold):
+        assert not ((a != st.above_threshold) & (margin > 1e-5 * e_s.abs())).any()
+    torch.testing.assert_close(carry_out, st.smooth_metric[:, -1], rtol=1e-5, atol=1e-5)
+    modes = mode_launch_counts()
+    assert modes["minn_rtl_metric/full"] == modes["minn_rtl_metric/corr_energy"] == 1
+    assert modes["minn_rtl_metric/primed"] == 3 and launch_counts()["minn_rtl_metric"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tie,emit,n_extra", [("last", True, 0), ("first", False, 3)])
+def test_cuda_gate_events_carried_matches_plain(cuda, tie, emit, n_extra):
+    """Kernel B with global indices, a finite global length and a gate carry
+    in and out, with and without capture."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batch, L, base, h = 6, 30_000, 1_000_000_000, 7
+    above = torch.rand((batch, L), generator=g, device=cuda) < 0.02
+    track = torch.randint(0, 50, (batch, L), generator=g, device=cuda).float()
+    extras = tuple(torch.randn((batch, L), generator=g, device=cuda) for _ in range(n_extra))
+    la = base - torch.randint(1, h + 1, (batch,), generator=g, device=cuda)
+    flag = torch.arange(batch, device=cuda) % 2
+    gi = torch.stack([torch.where(flag > 0, la, -1), flag], dim=1).to(torch.int32)
+    kw = dict(hysteresis=h, max_events=8, valid_from=base + 10, tie=tie, emit_unclosed=emit,
+              base_index=base, stream_len_global=base + L - 300, gate_init=gi)
+    reset_launch_counts()
+    if extras:
+        table, cap, gate_out = F.gate_events_capture(above, track, extras, **kw, emit_state=True)
+    else:
+        (table, gate_out), cap = F.gate_events(above, track, **kw, emit_state=True), None
+    ref, ref_cap, ref_gate = extract_gate_events_carried(above, track, extras, **kw)
+    assert_tables_equal(ref, table, "kernel B carried")
+    assert torch.equal(gate_out, ref_gate)
+    if extras:
+        assert torch.equal(cap, ref_cap)
+    assert mode_launch_counts()["gate_events/primed"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_aa_and_zc_primed_match_plain(cuda):
+    """Kernel C primed (bit-equal) and kernel D's primed magnitude mode
+    (dyadic magnitudes: exact local sums, so equal above bits)."""
+    lag, batch, n, base = 256, 3, 3 * 4096 + 7, 77_777
+    x = aa_stimulus(batch, n, lag, cuda, seed=2, events=[(0, 50), (2, 5000)])
+    hist = aa_stimulus(batch, 2 * lag, lag, cuda, seed=3, events=[(1, 100)])
+    o = AF.aa_metric(x.to(torch.int16), half_len=lag, threshold=0.15, base_index=base,
+                     hist_init=hist)
+    st = aa_metric_planar(F._planar_view(x), lag, base_index=base, hist=F._planar_view(hist))
+    track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, 0.15, base)
+    for out, ref in ((o.P_re, st.P_re), (o.P_im, st.P_im), (o.track, track), (o.M, M),
+                     (o.above, above)):
+        assert torch.equal(out, ref)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mag = torch.randn((3, 20_000), generator=g, device=cuda).abs().mul(0.05)
+    mag[0, 3000] += 1.0
+    mag[2, 15_000] += 1.0
+    mag = (mag * 1024).round() / 1024
+    mhist = (torch.rand((3, 2048), generator=g, device=cuda) * 51).round() / 1024
+    m = ZF.zc_metric(mag, **ZC, base_index=base, hist_init=mhist)
+    assert torch.equal(m.above, zc_cfar_planar(mag, **ZC, base_index=base, hist=mhist))
+    assert int(m.above.sum()) >= 2
+
+
+@pytest.mark.gpu
+def test_cuda_fused_streams_match_cpu(cuda):
+    """The three fused stream steps on the card equal the CPU, chunk by
+    chunk (tables, gate carry; the Minn register within 1e-5)."""
+    mp = ST.MinnRTLStreamParams(quarter_len=64, **KW, hysteresis=2)
+    x = torch.from_numpy(_stimulus(3, 4 * 4096, 64, [(0, 4096 - 200), (2, 9000)]))
+    xa = aa_stimulus(3, 4 * 4096, 256, "cpu", seed=5, events=[(1, 2 * 4096 - 300)])
+    mag = (torch.rand((3, 4 * 4096), generator=torch.Generator().manual_seed(6)) * 51).round() / 1024
+    mag[1, 4096 + 3] += 1.0
+    cases = ((ST.minn_rtl_fused_stream_step, lambda d: ST.minn_rtl_fused_stream_init(mp, 3, device=d),
+              x, dict(params=mp)),
+             (ST.aa_fused_stream_step, lambda d: ST.aa_fused_stream_init(256, 3, device=d), xa,
+              dict(half_len=256)),
+             (ST.zc_cfar_fused_stream_step, lambda d: ST.zc_cfar_fused_stream_init(2048, 3, device=d),
+              mag, ZC))
+    reset_launch_counts()
+    for step, init, data, kw in cases:
+        sg, sc = init(cuda), init("cpu")
+        for o in range(0, data.shape[-1], 4096):
+            c = data[..., o: o + 4096].contiguous()
+            sg, tg = step(sg, c.to(cuda), **kw)
+            sc, tc = step(sc, c, **kw)
+            if not isinstance(tg, GateEvents):  # [A][A]: (table, P_at_peak, M_at_peak)
+                assert torch.equal(tg[1].cpu(), tc[1]) and torch.equal(tg[2].cpu(), tc[2])
+                tg, tc = tg[0], tc[0]
+            assert_tables_equal(tc, tg, f"{step.__name__} at {o}")
+            assert torch.equal(sg.gate.cpu(), sc.gate)
+        if hasattr(sg, "carry"):
+            torch.testing.assert_close(sg.carry.cpu(), sc.carry, rtol=1e-5, atol=1e-5)
+    modes = mode_launch_counts()
+    assert min(modes["minn_rtl_metric/primed"], modes["aa_metric/primed"],
+               modes["zc_metric/primed"]) == 4 and modes["gate_events/primed"] == 12

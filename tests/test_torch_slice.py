@@ -65,7 +65,7 @@ def test_receive_chain_matches_jax(capsys):
     kw = dict(snr_db=30.0, cfo_hz=1000.0, seed=0)
     jr = j_run(**kw)
     jout = capsys.readouterr().out
-    tr = t_run(**kw)
+    tr = t_run(**kw, device="cpu")
     tout = capsys.readouterr().out
     assert jr.detected and tr.detected
     assert len(jr.frames) == len(tr.frames) == 2
@@ -79,7 +79,7 @@ def test_receive_chain_matches_jax(capsys):
 
 def test_cli_runs_the_chain(capsys):
     assert t_main(["fused_rx", "--family", "minn_rtl", "--snr", "30", "--channel",
-                   "cir2"]) == 0
+                   "cir2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "CIR2, SNR +30 dB" in out and "Frame 1:" in out
 

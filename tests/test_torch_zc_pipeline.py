@@ -40,7 +40,7 @@ MODULES = {"zc": (zc, jzc), "zc_v2": (zc_v2, jzc_v2)}
 
 @pytest.mark.parametrize("name,channel", list(REFERENCE))
 def test_simulation_reproduces_reference(name, channel, capsys):
-    r = MODULES[name][0].run_simulation(channel)
+    r = MODULES[name][0].run_simulation(channel, device="cpu")
     out = capsys.readouterr().out
     for key, want in REFERENCE[(name, channel)].items():
         if key == "cfo_est_hz":
@@ -57,7 +57,7 @@ def test_report_matches_jax(name, channel, capsys):
     tmod, jmod = MODULES[name]
     jr = jmod.run_simulation(channel, None)
     jout = capsys.readouterr().out
-    tr = tmod.run_simulation(channel)
+    tr = tmod.run_simulation(channel, device="cpu")
     tout = capsys.readouterr().out
     assert tout.splitlines() == jout.splitlines()
     assert tr["peak_index"] == jr["peak_index"]
@@ -84,15 +84,16 @@ def test_post_detection_chain_matches_jax(channel, start):
 
 def test_plots_are_not_ported():
     with pytest.raises(NotImplementedError):
-        zc_v2.run_simulation("cir1", plots_subdir="measured_channel")
+        zc_v2.run_simulation("cir1", plots_subdir="measured_channel", device="cpu")
 
 
 def test_cli_runs_both_simulations(capsys):
-    assert t_main(["zc_v2"]) == 0
+    assert t_main(["zc_v2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "ZC V2 DETECTION RESULTS - FLAT AWGN" in out and "MEASURED CIR 'CIR1'" in out
     assert "<- PRIMARY" in out and "ALL SIMULATIONS COMPLETE" in out
-    assert t_main(["zc"]) == 0
+    assert t_main(["zc", "--device", "cpu"]) == 0
     assert "Matched filter peak index: 3548" in capsys.readouterr().out
-    with pytest.raises(SystemExit):  # the ZC simulations run on the CPU only
-        t_main(["zc", "--device", "cuda"])
+    with pytest.raises(SystemExit):  # --help: the device flag says where the kernels run
+        t_main(["zc_v2", "--help"])
+    assert "--device" in (help_text := capsys.readouterr().out) and "detect_fused" in help_text
