@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing [TREE]   # the timed phases only, on TREE's kernels
 
 Builds the CUDA kernels of `ofdm_sync_tpu_torch/kernels/csrc/` from this
 checkout, then, for each ported path:
@@ -10,7 +11,8 @@ checkout, then, for each ported path:
   the card, drives the flagship receive chain (`run_fused_rx_minn_rtl`) on
   the card and on the CPU, and runs the fused detector at the headline size
   (512 streams x 262144 samples x 2 branches, Q = 512) in float32 and
-  int16, timed against the plain version;
+  int16, timed against the plain version, and on one long stream (1 x 2^24
+  x 2 branches), checked against the plain version and timed;
 * [A][A]: checks kernel C (both modes) and kernel B with peak capture
   against their plain versions, drives the [A][A] receive chain
   (`run_fused_rx`) and the fused grid sweep (`run_grid_test_fused`) on the
@@ -54,6 +56,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -63,7 +66,13 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+#: ``--timing [TREE]``: only the timed phases (5, 13, 15), on the kernels of
+#: the checkout TREE (default: this one), so that two trees are timed by
+#: the same script on the same card
+TIMING = "--timing" in sys.argv[1:]
+_AT = sys.argv.index("--timing") + 1 if TIMING else 0
+TREE = os.path.abspath(sys.argv[_AT]) if TIMING and _AT < len(sys.argv) else ROOT
+sys.path.insert(0, TREE)
 
 from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import build  # noqa: E402
@@ -115,6 +124,8 @@ CORR_RTOL = 2e-5
 #: smoothing scans round in another order)
 KNIFE_RTOL = 1e-5
 HEADLINE = dict(batch=512, L=1 << 18, Q=512)
+#: one long capture: 1 x 2^24 x 2 branches f32 (256 MiB of IQ)
+LONG = dict(L=1 << 24)
 #: bench.py's secondary workload (bench.py:459-476): the [A][A] detector
 AA_HEADLINE = dict(batch=512, n=1 << 18, lag=512)
 AA_THR, AA_HYST = 0.15, 128
@@ -293,6 +304,38 @@ def cuda_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, warmup: int = 2, reps: int = 20) -> float:
+    """Device time of one fn(): the mean over `reps` back-to-back calls
+    between two CUDA events, after `warmup` calls (no host sync between
+    the calls, so the host's per-call work overlaps the device's)."""
+    for _ in range(warmup):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_ms(fn, reps: int = 5) -> float | None:
+    """Device time of the work one fn() puts on the card: torch.profiler's
+    device events summed, mean over `reps` calls after one warm-up.  Unlike
+    cuda_ms and device_ms it leaves out the host's share (a wrapper whose
+    host work outlasts its kernels shows that work in device_ms).  None
+    where the profiler records no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us else None
+
+
 def phase_headline(dev, card: str) -> dict:
     B, L, Q = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"]
     log(f"== phase 5: headline size {B} x {L} x 2 branches, Q={Q}")
@@ -320,9 +363,10 @@ def phase_headline(dev, card: str) -> dict:
         gated = gated_samples(above, HYST)
         t_fused = cuda_ms(lambda: F.minn_rtl_detect_fused(x, **det))
         t_a = cuda_ms(lambda: F.minn_rtl_metric(x, quarter_len=Q, **KW))
-        t_b = cuda_ms(lambda: F.gate_events(above, corr, hysteresis=HYST, max_events=8,
-                                            valid_from=3 * Q - 1, tie="last",
-                                            emit_unclosed=False))
+        run_b = lambda: F.gate_events(above, corr, hysteresis=HYST, max_events=8,  # noqa: E731
+                                      valid_from=3 * Q - 1, tie="last", emit_unclosed=False)
+        t_b, t_b_dev, t_b_kernel = cuda_ms(run_b), device_ms(run_b), kernel_ms(run_b)
+        t_a_kernel = kernel_ms(lambda: F.minn_rtl_metric(x, quarter_len=Q, **KW))
         t_pa = cuda_ms(lambda: plain_metric(x, Q), reps=5)
         st = plain_metric(x, Q)
         t_pb = cuda_ms(lambda: extract_gate_events(
@@ -331,12 +375,63 @@ def phase_headline(dev, card: str) -> dict:
         del st, corr, above
         torch.cuda.empty_cache()
         n = B * L
-        res[name] = dict(fused_ms=t_fused, a_ms=t_a, b_ms=t_b, plain_a_ms=t_pa,
+        res[name] = dict(fused_ms=t_fused, a_ms=t_a, b_ms=t_b, b_device_ms=t_b_dev,
+                         a_kernel_ms=t_a_kernel, b_kernel_ms=t_b_kernel, plain_a_ms=t_pa,
                          plain_b_ms=t_pb, plain_ms=t_pa + t_pb, b_gated=gated)
         log(f"  {name}: kernels A+B {t_fused:.3f} ms = {n / t_fused * 1e3:.4g} samples/s "
-            f"(A {t_a:.3f} ms, B {t_b:.3f} ms); plain {t_pa + t_pb:.3f} ms = "
+            f"(A {t_a:.3f} ms, B {t_b:.3f} ms, B back to back {t_b_dev:.4f} ms; profiler: A "
+            f"{t_a_kernel} ms, B {t_b_kernel} ms); plain "
+            f"{t_pa + t_pb:.3f} ms = "
             f"{n / (t_pa + t_pb) * 1e3:.4g} samples/s (metric {t_pa:.3f}, events "
             f"{t_pb:.3f}); card {card}")
+    return res
+
+
+def phase_long(dev, card: str) -> dict:
+    """One long capture, f32: kernels A and B against their plain versions
+    on the card (metric by the phase-3 rules, tables equal), then A, B and
+    A + B timed."""
+    L, Q = LONG["L"], HEADLINE["Q"]
+    log(f"== phase 5, long stream: 1 x {L} x 2 branches f32, Q={Q} "
+        f"({L / 30.72e6:.2f} s at 30.72 Msps)")
+    # sixteen preambles, some across kernel A's and kernel B's span seams
+    events = [(0, 3 * Q)] + [(0, k * (L // 16) + L // 1024 * (k % 3) - 2 * Q - 100 * k)
+                             for k in range(1, 16)]
+    x, _ = minn_stimulus(1, L, Q, dev, seed=5, events=events)
+    det = dict(quarter_len=Q, **KW, hysteresis=HYST, max_events=32)
+    err = check_metric(x, Q, "long stream")
+    fused = F.minn_rtl_detect_fused(x, **det)
+    st = plain_metric(x, Q)
+    ref = extract_gate_events(st.above_threshold, st.corr_positive, hysteresis=HYST,
+                              max_events=32, valid_from=st.valid_from, tie="last",
+                              emit_unclosed=False)
+    assert_tables_equal(ref, fused, "long stream")
+    pk = fused.peak_idx[0][fused.valid[0]].tolist()
+    missing = [pos for _, pos in events if not any(5 * Q <= p - pos <= 7 * Q for p in pk)]
+    if missing:
+        raise AssertionError(f"long stream: preambles at {missing} not found")
+    del st, ref
+    corr, above = F.minn_rtl_metric(x, quarter_len=Q, **KW)
+    bkw = dict(hysteresis=HYST, max_events=32, valid_from=3 * Q - 1, tie="last",
+               emit_unclosed=False)
+    run_a = lambda: F.minn_rtl_metric(x, quarter_len=Q, **KW)  # noqa: E731
+    run_b = lambda: F.gate_events(above, corr, **bkw)  # noqa: E731
+    run_ab = lambda: F.minn_rtl_detect_fused(x, **det)  # noqa: E731
+    gated = gated_samples(above, HYST)
+    res = dict(corr_err=err, events=int(fused.count.sum()), gated=gated,
+               a_bound_ms=bound(*a_work(1, L, 4, 4, 5))[0],
+               b_bound_ms=bound(*b_work(above, gated, E=32))[0],
+               a_ms=cuda_ms(run_a), b_ms=cuda_ms(run_b), fused_ms=cuda_ms(run_ab),
+               a_device_ms=device_ms(run_a), b_device_ms=device_ms(run_b),
+               fused_device_ms=device_ms(run_ab), a_kernel_ms=kernel_ms(run_a),
+               b_kernel_ms=kernel_ms(run_b), fused_kernel_ms=kernel_ms(run_ab))
+    del x, corr, above, fused
+    torch.cuda.empty_cache()
+    log(f"  A+B == plain ({res['events']} events); A {res['a_ms']:.4f} ms, B {res['b_ms']:.4f} ms, "
+        f"A+B {res['fused_ms']:.4f} ms; back to back: A {res['a_device_ms']:.4f}, B "
+        f"{res['b_device_ms']:.4f}, A+B {res['fused_device_ms']:.4f} ms; profiler: A "
+        f"{res['a_kernel_ms']}, B {res['b_kernel_ms']}, A+B {res['fused_kernel_ms']} ms; "
+        f"card {card}")
     return res
 
 
@@ -1513,7 +1608,9 @@ def phase_latency(dev, card: str) -> dict:
     if rel_err(carry_out, st.smooth_metric[:, -1]) > CARRY_RTOL:
         raise AssertionError(f"{what}: carry_out differs by more than {CARRY_RTOL}")
     del full, st
-    res["a_primed_ms"] = cuda_ms(lambda: F.minn_rtl_metric(p, **akw, emit_state=True))
+    run_a = lambda: F.minn_rtl_metric(p, **akw, emit_state=True)  # noqa: E731
+    res["a_primed_ms"], res["a_primed_device_ms"] = cuda_ms(run_a), device_ms(run_a)
+    res["a_primed_kernel_ms"] = kernel_ms(run_a)
     res["plain_a_primed_ms"] = cuda_ms(plain_a)
     gi = gate_carry(B, base, torch.Generator(device=dev).manual_seed(15), dev, HYST)
     bkw = dict(hysteresis=HYST, max_events=8, valid_from=3 * Q - 1, tie="last",
@@ -1523,7 +1620,9 @@ def phase_latency(dev, card: str) -> dict:
     rt, _, rg = extract_gate_events_carried(above, corr, (), **bkw)
     assert_tables_equal(rt, table, f"primed B at {B} x {chunk}")
     check_equal(gate_out, rg, f"primed B at {B} x {chunk} gate_out")
-    res["b_primed_ms"] = cuda_ms(lambda: F.gate_events(above, corr, **bkw, emit_state=True))
+    run_b = lambda: F.gate_events(above, corr, **bkw, emit_state=True)  # noqa: E731
+    res["b_primed_ms"], res["b_primed_device_ms"] = cuda_ms(run_b), device_ms(run_b)
+    res["b_primed_kernel_ms"] = kernel_ms(run_b)
     res["plain_b_primed_ms"] = cuda_ms(lambda: extract_gate_events_carried(above, corr, (),
                                                                            **bkw))
     res["a_primed_work"] = a_work(B, chunk, 4, 4, 5, hist_len=1536)
@@ -1542,8 +1641,9 @@ def phase_latency(dev, card: str) -> dict:
     for name, out, want in zip(("P_re", "P_im", "track", "M", "above"),
                                (o.P_re, o.P_im, o.track, o.M, o.above), plain_c()):
         check_equal(out, want, f"primed C at {B} x {chunk} {name}")
-    res["c_primed_ms"] = cuda_ms(lambda: AF.aa_metric(pa, half_len=lag, threshold=AA_THR,
-                                                      base_index=chunk, hist_init=ha))
+    run_c = lambda: AF.aa_metric(pa, half_len=lag, threshold=AA_THR,  # noqa: E731
+                                 base_index=chunk, hist_init=ha)
+    res["c_primed_ms"], res["c_primed_device_ms"] = cuda_ms(run_c), device_ms(run_c)
     res["plain_c_primed_ms"] = cuda_ms(plain_c)
     res["c_primed_work"] = c_work(B, chunk, 4, 4, 17, hist_len=1024)
     del xa, pa, ha, o
@@ -1552,8 +1652,8 @@ def phase_latency(dev, card: str) -> dict:
     check_equal(ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk, hist_init=hm).above,
                 zc_cfar_planar(pm, **ZC_CFAR, base_index=chunk, hist=hm),
                 f"primed D at {B} x {chunk} above")
-    res["d_primed_ms"] = cuda_ms(lambda: ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk,
-                                                      hist_init=hm))
+    run_d = lambda: ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk, hist_init=hm)  # noqa: E731
+    res["d_primed_ms"], res["d_primed_device_ms"] = cuda_ms(run_d), device_ms(run_d)
     res["plain_d_primed_ms"] = cuda_ms(lambda: zc_cfar_planar(pm, **ZC_CFAR, base_index=chunk,
                                                               hist=hm))
     res["d_primed_work"] = d_mag_work(B, chunk, hist_len=2048)
@@ -1563,7 +1663,10 @@ def phase_latency(dev, card: str) -> dict:
         f"{res['a_primed_ms']:.3f} ms (plain {res['plain_a_primed_ms']:.3f}), B "
         f"{res['b_primed_ms']:.3f} (plain {res['plain_b_primed_ms']:.3f}), C "
         f"{res['c_primed_ms']:.3f} (plain {res['plain_c_primed_ms']:.3f}), D "
-        f"{res['d_primed_ms']:.3f} (plain {res['plain_d_primed_ms']:.3f}); card {card}")
+        f"{res['d_primed_ms']:.3f} (plain {res['plain_d_primed_ms']:.3f}); back to back: A "
+        f"{res['a_primed_device_ms']:.4f}, B {res['b_primed_device_ms']:.4f}, C "
+        f"{res['c_primed_device_ms']:.4f}, D {res['d_primed_device_ms']:.4f} ms; profiler: A "
+        f"{res['a_primed_kernel_ms']}, B {res['b_primed_kernel_ms']} ms; card {card}")
     return res
 
 
@@ -1599,15 +1702,30 @@ def main() -> int:
     info = build.build()
     build.library()
     log(f"  built {info.path.name} in {info.seconds:.1f} s")
+    spills = []
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"a kernel spills registers: {spills}")
     if any(launch_counts().values()):
         raise AssertionError(f"launch counters do not start at 0: {launch_counts()}")
+    if TIMING:
+        log(f"== timing the kernels of {TREE}")
+        out = {"tree": TREE, "headline": phase_headline(dev, card), "long": phase_long(dev, card),
+               "stream_kernels": phase_stream_kernels(dev, card)["res"],
+               "latency": phase_latency(dev, card)}
+        print(json.dumps(out))
+        print(card)
+        return 0
 
     k = phase_kernels(dev)
     counts = phase_slice(dev)
     head = phase_headline(dev, card)
+    long = phase_long(dev, card)
     aa_k = phase_aa_kernels(dev)
     aa_chain = phase_aa_chain(dev)
     aa_sweep = phase_aa_sweep(dev)
@@ -1688,7 +1806,7 @@ def main() -> int:
                             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"headline": head, "aa_headline": aa_head,
+    print(json.dumps({"headline": head, "long": long, "aa_headline": aa_head,
                       "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head,
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
                       "other_bounds_ms": other_bounds}))

@@ -32,11 +32,11 @@ _F = ctypes.c_float
 
 #: C signatures of the library's entry points (all return cudaError_t).
 SIGNATURES = {
-    "minn_rtl_metric": [_I, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _I, _LL, _F, _LL, _F, _F,
+    "minn_rtl_metric": [_I, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _LL, _F, _LL, _F, _F,
                         _P, _P, _P, _P, _P, _P],
     "gate_events_f32": [_P, _P, _I, _LL, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                        _I, _LL, _P, _P, _P],
+                        _I, _LL, _P, _P, _P, _I, _P],
     "aa_metric": [_I, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     "zc_cfar_mag_f32": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _F, _F, _P, _P],
     "zc_cfar_iq_f32": [_P, _P, _I, _I, _LL, _LL, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],

@@ -1,11 +1,12 @@
-// Block-wide scans shared by the kernels.
+// Scans shared by the kernels.
 //
-// Every helper is called by ALL threads of the block (it contains
+// Every block_* helper is called by ALL threads of the block (it contains
 // __syncthreads), needs blockDim.x to be a multiple of 32 and at most 1024,
 // and takes a 32-entry shared scratch array that it leaves free for reuse
-// on return.  Exclusive prefixes are formed by shuffling the inclusive
-// prefix one lane up, never by subtracting the own value, so a float scan
-// adds each term exactly once.
+// on return; the pair and map operations beside them also serve warp scans
+// written in the kernels.  Exclusive prefixes are formed by shuffling the
+// inclusive prefix one lane up, never by subtracting the own value, so a
+// float scan adds each term exactly once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,39 +15,13 @@ namespace ofdm {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---- (sum, sum) pair in float64: chunk-local prefix sums ------------------
+// ---- (sum, sum) pair in float64: kernel A's window increments (warp scan) --
 __device__ __forceinline__ double2 add2(double2 a, double2 b) {
   return make_double2(a.x + b.x, a.y + b.y);
 }
 
 __device__ __forceinline__ double2 shfl_up2(double2 v, int d) {
   return make_double2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
-}
-
-__device__ __forceinline__ double2 block_excl_sum2(double2 v, double2* sbuf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  double2 inc = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const double2 o = shfl_up2(inc, d);
-    if (lane >= d) inc = add2(o, inc);
-  }
-  double2 exc = shfl_up2(inc, 1);
-  if (lane == 0) exc = make_double2(0.0, 0.0);
-  if (lane == 31) sbuf[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    double2 t = lane < nw ? sbuf[lane] : make_double2(0.0, 0.0);
-    for (int d = 1; d < 32; d <<= 1) {
-      const double2 o = shfl_up2(t, d);
-      if (lane >= d) t = add2(o, t);
-    }
-    if (lane < nw) sbuf[lane] = t;  // inclusive warp totals
-  }
-  __syncthreads();
-  const double2 r = warp > 0 ? add2(sbuf[warp - 1], exc) : exc;
-  __syncthreads();
-  return r;
 }
 
 // ---- (sum, sum, sum) triple in float64: the [A][A] prefix sums ----------
@@ -131,7 +106,7 @@ __device__ __forceinline__ DVec<N> block_incl_sum_n(DVec<N> x, DVec<N>* sbuf, DV
   return inc;
 }
 
-// ---- affine maps s -> A*s + B in float32: the smoothing recurrence --------
+// ---- affine maps s -> A*s + B in float32: the smoothing recurrence (warp scan)
 // compose(l, r) applies l first, then r.
 __device__ __forceinline__ float2 compose(float2 l, float2 r) {
   return make_float2(l.x * r.x, fmaf(r.x, l.y, r.y));
@@ -139,33 +114,6 @@ __device__ __forceinline__ float2 compose(float2 l, float2 r) {
 
 __device__ __forceinline__ float2 shfl_up_f2(float2 v, int d) {
   return make_float2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
-}
-
-__device__ __forceinline__ float2 block_excl_affine(float2 v, float2* sbuf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const float2 ident = make_float2(1.0f, 0.0f);
-  float2 inc = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const float2 o = shfl_up_f2(inc, d);
-    if (lane >= d) inc = compose(o, inc);
-  }
-  float2 exc = shfl_up_f2(inc, 1);
-  if (lane == 0) exc = ident;
-  if (lane == 31) sbuf[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    float2 t = lane < nw ? sbuf[lane] : ident;
-    for (int d = 1; d < 32; d <<= 1) {
-      const float2 o = shfl_up_f2(t, d);
-      if (lane >= d) t = compose(o, t);
-    }
-    if (lane < nw) sbuf[lane] = t;
-  }
-  __syncthreads();
-  const float2 r = warp > 0 ? compose(sbuf[warp - 1], exc) : exc;
-  __syncthreads();
-  return r;
 }
 
 // ---- int32 exclusive max / sum, with the block total ----------------------

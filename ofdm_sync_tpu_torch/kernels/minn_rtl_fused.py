@@ -8,20 +8,26 @@ Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_minn_tm.py:_tm_kernel`
 #4).  On the H100 the work is two CUDA kernels (`csrc/minn_rtl_metric.cu`,
 `csrc/gate_events.cu`):
 
-* kernel A, `minn_rtl_metric`: the per-sample metric, one CTA per (time
-  chunk, stream), each chunk primed from a left halo.  Its output modes:
-  corr_positive and above (#1, #2), the full metric with smooth and energy
-  (#3, `minn_rtl_metric_planar_fused`), corr_positive and energy without
-  the IIR (#4, `minn_rtl_corr_energy_planar_fused`).  Primed, it starts
-  from the IQ history and smoothing register of the chunk before
-  (``base_index``, ``hist_init``, ``carry_init``) and can return the
-  register at its last sample (``emit_state``);
-* kernel B, `gate_events`: one CTA per stream walks its time tiles in order
-  and writes the event table; its carried-state mode takes global indices
-  (``base_index``, ``stream_len_global``) and the gate carry in and out
-  (``gate_init``, ``emit_state``).  The [A][A] detector (`kernels.aa_fused`)
-  uses it too, through `gate_events_capture`, which also reads side
-  channels at each slot's peak.
+* kernel A, `minn_rtl_metric`: the per-sample metric.  Each CTA walks a
+  span of consecutive tiles of one stream in order, carrying the delay
+  line, the window sums and the smoothing register from tile to tile; a
+  span primes once, from a left halo or, at the stream's head, from the
+  history.  Its output modes: corr_positive and above (#1, #2), the full
+  metric with smooth and energy (#3, `minn_rtl_metric_planar_fused`),
+  corr_positive and energy without the IIR (#4,
+  `minn_rtl_corr_energy_planar_fused`).  Primed, it starts from the IQ
+  history and smoothing register of the chunk before (``base_index``,
+  ``hist_init``, ``carry_init``) and can return the register at its last
+  sample (``emit_state``);
+* kernel B, `gate_events`: span-parallel.  Per span a summary (first and
+  last above index, cluster starts), a scan of the summaries gives the gate
+  state entering each span, and each span merges its clusters into the
+  stream's slots; where batch alone fills the card one CTA walks each
+  stream.  Its carried-state mode takes global indices (``base_index``,
+  ``stream_len_global``) and the gate carry in and out (``gate_init``,
+  ``emit_state``).  The [A][A] detector (`kernels.aa_fused`) uses it too,
+  through `gate_events_capture`, which also reads side channels at each
+  slot's peak.
 
 Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
 tensor it launches its kernel (and counts the launch in ``.launches``, and
@@ -33,6 +39,7 @@ raises.  There is no fallback from one to the other.
 from __future__ import annotations
 
 import collections
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -51,15 +58,15 @@ from ofdm_sync_tpu_torch.ops.detect import (
     extract_gate_events_carried,
 )
 
-#: output samples per kernel-A CTA
-CHUNK = 4096
 #: kernel B's event-slot capacity
 MAX_EVENTS = 128
-#: dynamic shared memory a Hopper CTA may use
-_SMEM_LIMIT = 227 * 1024
-#: the kernels index samples in int32 and read up to one 2048-sample tile
-#: past the end: base + L stays below this
-_I32_LIMIT = 2**31 - 2 * 2048
+#: dynamic shared memory a Hopper CTA may use (less kernel A's static part)
+_SMEM_LIMIT = 227 * 1024 - 1024
+#: samples per tile of kernel A (256 threads x 4) and of kernel B (256 x 16)
+_A_TILE, _B_TILE = 1024, 4096
+#: the kernels index samples in int32 and walk up to one tile past the
+#: end: base + L stays below this
+_I32_LIMIT = 2**31 - 2 * _B_TILE
 
 #: kernel A's output modes: name -> outputs written
 _A_MODES = {
@@ -81,11 +88,11 @@ class MinnMetricRows(NamedTuple):
 
 
 def metric_halo(quarter_len: int, smooth_shift: int) -> int:
-    """Left-halo samples that make a time chunk of kernel A independent of
-    the samples before it: 3Q of delay-line reach plus the smoothing
-    memory after which older terms weigh less than 2^-45 (the truncation
-    of the TPU kernel's scan; `parallel/shard.py:_minn_halo_width` without
-    its h-sample gate tail, since kernel B walks each stream in order)."""
+    """Left-halo samples that make a span of kernel A independent of the
+    samples before it: 3Q of delay-line reach plus the smoothing memory
+    after which older terms weigh less than 2^-45 (the truncation of the
+    TPU kernel's scan; `parallel/shard.py:_minn_halo_width` without its
+    h-sample gate tail, since kernel B carries the gate across spans)."""
     alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
     decay = 1.0 - alpha
     scan_mem, step = 0, 1
@@ -141,6 +148,28 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _carve(dev, fields) -> dict:
+    """One allocation cut into the (name, dtype, shape) fields, each
+    starting on a 16-byte boundary: a contiguous view per field (one
+    `as_strided` each), or, where dtype is None, the address of ``shape``
+    bytes of scratch."""
+    at, offsets = 0, []
+    for _, dt, shape in fields:
+        offsets.append(at)
+        at += -(-(shape if dt is None else math.prod(shape) * dt.itemsize) // 16) * 16
+    buf = torch.empty(max(at, 16), dtype=torch.uint8, device=dev)
+    typed, out = {}, {}
+    for (name, dt, shape), o in zip(fields, offsets):
+        if dt is None:
+            out[name] = buf.data_ptr() + o
+            continue
+        if dt not in typed:
+            typed[dt] = buf.view(dt)
+        strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+        out[name] = typed[dt].as_strided(shape, strides, o // dt.itemsize)
+    return out
+
+
 def _count(fn, *modes: str) -> None:
     fn.launches += 1
     for m in modes:
@@ -191,32 +220,36 @@ def _minn_metric(
                               pick("energy", st.energy_total), st.above_threshold, carry_out)
     if not x.is_contiguous():
         raise ValueError("kernel A needs a contiguous input")
-    halo = metric_halo(Q, smooth_shift) if scan else 3 * Q
-    smem = 2 * (halo + CHUNK) * 8 + (4 * (halo + CHUNK - 3 * Q + 1) if scan else 0)
+    if C > 8:
+        raise ValueError(f"kernel A takes at most 4 branches, got {C // 2}")
+    ring = lambda n: -(-n // 4) * 4  # noqa: E731
+    smem = 4 * (C * ring(Q + _A_TILE) + 2 * ring(3 * Q + _A_TILE))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
     check_index_range(base, L)
     dev = x.device
-    out = {name: torch.empty((batch, L), dtype=torch.uint8 if name == "above" else torch.float32,
+    out = {name: torch.empty((batch, L), dtype=torch.bool if name == "above" else torch.float32,
                              device=dev) for name in _A_MODES[mode]}
-    carry_out = torch.zeros(batch, dtype=torch.float32, device=dev) if emit_state else None
+    carry_out = out["carry_out"] = torch.empty(batch, device=dev) if emit_state else None
     carry = None if carry_init is None else carry_init.to(torch.float32).contiguous()
-    if emit_state and not L and carry is not None:
-        carry_out.copy_(carry)
+    if emit_state and not L:  # no sample: the register passes through
+        if carry is None:
+            carry_out.zero_()
+        else:
+            carry_out.copy_(carry)
     if batch and L:
         alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
         err = build.library().minn_rtl_metric(
             int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch, L, Q,
-            halo, CHUNK, 0 if hist is None else hist.shape[-1], int(scan), base, alpha,
-            max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
-            _ptr(out.get("corr")), _ptr(out.get("smooth")), _ptr(out.get("energy")),
-            _ptr(out.get("above")), _ptr(carry_out), _stream(x))
+            metric_halo(Q, smooth_shift), 0 if hist is None else hist.shape[-1], int(scan), base,
+            alpha, max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
+            *(_ptr(out.get(f)) for f in ("corr", "smooth", "energy", "above", "carry_out")),
+            _stream(x))
         build.check(err, "minn_rtl_metric")
         primed = hist is not None or carry is not None or base != 0 or emit_state
         _count(minn_rtl_metric, mode, *(("primed",) if primed else ()))
-    above = out.get("above")
-    return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"),
-                          None if above is None else above.view(torch.bool), carry_out)
+    return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"), out.get("above"),
+                          carry_out)
 
 
 def minn_rtl_metric(
@@ -365,31 +398,37 @@ def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0
     if not 0 <= Lg < 2**31:
         raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
     dev, E = track.device, max_events
-    cap = torch.empty((batch, len(extras), E), dtype=torch.float32, device=dev)
-    ginit = None if gate_init is None else gate_init.to(torch.int32).contiguous()
-    gate_out = torch.empty((batch, 2), dtype=torch.int32, device=dev) if emit_state else None
     if batch == 0:
-        return (empty_table((0,), max_events, track.dtype, dev), (cap if extras else None),
-                gate_out)
-    new = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
-    valid, closed = new(torch.uint8, batch, E), new(torch.uint8, batch, E)
-    start, close, pidx = (new(torch.int32, batch, E) for _ in range(3))
-    pval = new(torch.float32, batch, E)
-    count, overflow = new(torch.int32, batch), new(torch.uint8, batch)
+        return (empty_table((0,), max_events, track.dtype, dev),
+                torch.empty((0, len(extras), E), device=dev) if extras else None,
+                torch.empty((0, 2), dtype=torch.int32, device=dev) if emit_state else None)
+    ginit = gate_init
+    if ginit is not None and (ginit.dtype != torch.int32 or not ginit.is_contiguous()):
+        ginit = ginit.to(torch.int32).contiguous()
+    # one allocation: the table, the captured channels, gate_out, and the
+    # scratch of the span-parallel mode (span summaries, merged slots)
+    span_cap = max(1, -(-L // _B_TILE))
+    o = _carve(dev, [("start", torch.int32, (batch, E)), ("close", torch.int32, (batch, E)),
+                     ("pidx", torch.int32, (batch, E)), ("pval", torch.float32, (batch, E)),
+                     ("count", torch.int32, (batch,)), ("valid", torch.bool, (batch, E)),
+                     ("closed", torch.bool, (batch, E)), ("overflow", torch.bool, (batch,)),
+                     ("scratch", None, batch * (16 * span_cap + 16 * E + 4))]
+               + [("cap", torch.float32, (batch, len(extras), E))] * bool(extras)
+               + [("gate_out", torch.int32, (batch, 2))] * bool(emit_state))
     ex = [e.data_ptr() for e in extras] + [None] * (3 - len(extras))
     err = build.library().gate_events_f32(
         above.data_ptr(), track.data_ptr(), batch, L, valid_from, max(int(hysteresis), 1), E,
-        int(tie == "last"), int(emit_unclosed), valid.data_ptr(), closed.data_ptr(),
-        start.data_ptr(), close.data_ptr(), pidx.data_ptr(), pval.data_ptr(), count.data_ptr(),
-        overflow.data_ptr(), *ex, len(extras), cap.data_ptr(), base, Lg, _ptr(ginit),
-        _ptr(gate_out), _stream(track))
+        int(tie == "last"), int(emit_unclosed), o["valid"].data_ptr(), o["closed"].data_ptr(),
+        o["start"].data_ptr(), o["close"].data_ptr(), o["pidx"].data_ptr(), o["pval"].data_ptr(),
+        o["count"].data_ptr(), o["overflow"].data_ptr(),
+        *ex, len(extras), _ptr(o.get("cap")), base, Lg, _ptr(ginit), _ptr(o.get("gate_out")),
+        o["scratch"], span_cap, _stream(track))
     build.check(err, "gate_events")
     _count(gate_events, *(("primed",) if carried else ()))
     table = GateEvents(
-        valid=valid.view(torch.bool), closed=closed.view(torch.bool),
-        gate_start=start, gate_close=close, peak_idx=pidx, peak_value=pval,
-        count=count, overflow=overflow.view(torch.bool))
-    return table, (cap if extras else None), gate_out
+        valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
+        peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
+    return table, o.get("cap"), o.get("gate_out")
 
 
 def minn_rtl_detect_fused(
@@ -420,8 +459,10 @@ def minn_rtl_detect_fused(
     host integer) is the global index of sample 0, ``stream_len_global``
     the global length for close/closed semantics, ``shard_init`` =
     (hist_init (C, batch, <=H) float32, carry_init (batch,) float32,
-    gate_init (batch, 2) int32 [last-above global index, open-gate flag])
-    primes the chunk; with ``emit_state`` returns ``(table, (carry_out
+    gate_init (batch, 2) int32 [last-above global index, cluster count])
+    primes the chunk (kernel B numbers a carried gate's cluster from that
+    count, so a stream step passes 1 where a gate continues into the chunk
+    and 0 elsewhere); with ``emit_state`` returns ``(table, (carry_out
     (batch,), gate_out (batch, 2) [last-above, cluster count]))``."""
     _check_input(x)
     hist, carry, ginit = (None, None, None) if shard_init is None else shard_init

@@ -30,8 +30,13 @@ def assert_tables_equal(ref, out, what: str = "", peak_rtol: float = 0.0) -> Non
                    if r[f].shape == o[f].shape else f"shape {r[f].shape} vs {o[f].shape}")
             raise AssertionError(f"{what}: table field {f} differs at {bad}")
     rv, ov = r["peak_value"], o["peak_value"]
-    tol = peak_rtol * max(1.0, float(np.abs(rv).max()) if rv.size else 1.0)
-    if rv.shape != ov.shape or (rv.size and float(np.abs(rv - ov).max()) > tol):
+    finite = np.isfinite(rv)
+    tol = peak_rtol * max(1.0, float(np.abs(rv[finite]).max()) if finite.any() else 1.0)
+    if rv.shape != ov.shape:
+        raise AssertionError(f"{what}: peak_value shape {rv.shape} vs {ov.shape}")
+    with np.errstate(invalid="ignore"):  # equal infinities (empty slots) differ by 0
+        diff = np.where(rv == ov, 0.0, np.abs(rv - ov))
+    if rv.size and not float(diff.max()) <= tol:
         raise AssertionError(f"{what}: peak_value differs beyond {tol}")
 
 

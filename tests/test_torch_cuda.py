@@ -384,3 +384,119 @@ def test_cuda_fused_streams_match_cpu(cuda):
     modes = mode_launch_counts()
     assert min(modes["minn_rtl_metric/primed"], modes["aa_metric/primed"],
                modes["zc_metric/primed"]) == 4 and modes["gate_events/primed"] == 12
+
+
+# ---------------------------------------------------------------------------
+# Span seams: kernel A walks each stream in spans, each primed from a halo
+# (or, at the head, from the history); kernel B composes span summaries.
+# These shapes give several spans per stream.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["corr_above", "full", "corr_energy", "primed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("batch,L", [(1, 3 * 2**16 + 37), (3, 100_003)])
+def test_cuda_metric_spans_match_plain(cuda, mode, dtype, batch, L):
+    """Kernel A in every mode across span seams, preambles on the seams."""
+    q = 512
+    events = [(b, p) for b in range(batch) for p in range(3000 + 700 * b, L - 6 * q, 16_384)]
+    x = torch.from_numpy(_stimulus(batch, L, q, events, seed=batch)).to(dtype).to(cuda)
+    pk = {}
+    if mode == "primed":
+        pk = dict(base_index=77_777_777, carry_init=torch.rand(batch, device=cuda) * 1e4,
+                  hist_init=torch.from_numpy(_stimulus(batch, 3 * q, q, [], seed=9)).to(cuda))
+    hist = pk.get("hist_init")
+    st = minn_rtl_metric_planar(F._planar_view(x), quarter_len=q, **KW,
+                                base_index=pk.get("base_index", 0),
+                                hist_init=None if hist is None else F._planar_view(hist),
+                                carry_init=pk.get("carry_init"))
+    if mode == "corr_energy":
+        corr, energy = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=q)
+        assert _rel(corr, st.corr_positive) <= 2e-5 and torch.equal(energy, st.energy_total)
+        return
+    if mode == "full":
+        full = F.minn_rtl_metric_planar_fused(x, quarter_len=q, **KW)
+        corr, above = full.corr_positive, full.above_threshold
+        assert torch.equal(full.energy_total, st.energy_total)
+        assert _rel(full.smooth_metric, st.smooth_metric) <= 1e-5
+    else:
+        corr, above, carry_out = F.minn_rtl_metric(x, quarter_len=q, **KW, **pk, emit_state=True)
+        torch.testing.assert_close(carry_out, st.smooth_metric[:, -1], rtol=1e-5, atol=1e-5)
+    assert _rel(corr, st.corr_positive) <= 2e-5
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    assert not ((above != st.above_threshold) & (margin > 1e-5 * e_s.abs())).any()
+    assert int(above.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,dtype", [(37, torch.float32), (101, torch.int16)])
+def test_cuda_metric_odd_quarter_matches_plain(cuda, q, dtype):
+    """Kernel A with Q not a multiple of 4: its ring accesses at a Q offset
+    take the unaligned path, across spans and the primed head."""
+    batch, L = 2, 70_001
+    x = torch.from_numpy(_stimulus(batch, L, q, [(0, 5000), (1, 40_000)], seed=q))
+    x = x.to(dtype).to(cuda)
+    hist = torch.from_numpy(_stimulus(batch, 3 * q + 5, q, [], seed=3)).to(cuda)
+    carry = torch.rand(batch, device=cuda) * 1e3
+    pk = dict(base_index=12_345, hist_init=hist, carry_init=carry)
+    full = F.minn_rtl_metric_planar_fused(x, quarter_len=q, **KW, **pk)
+    st = minn_rtl_metric_planar(F._planar_view(x), quarter_len=q, **KW, base_index=12_345,
+                                hist_init=F._planar_view(hist), carry_init=carry)
+    assert _rel(full.corr_positive, st.corr_positive) <= 2e-5
+    assert torch.equal(full.energy_total, st.energy_total)
+    assert _rel(full.smooth_metric, st.smooth_metric) <= 1e-5
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    assert not ((full.above_threshold != st.above_threshold) & (margin > 1e-5 * e_s.abs())).any()
+    corr, energy = F.minn_rtl_corr_energy_planar_fused(x, quarter_len=q, hist_init=hist)
+    assert _rel(corr, st.corr_positive) <= 2e-5 and torch.equal(energy, st.energy_total)
+
+
+def _seam_gates(batch, n, seed):
+    """Above runs on and around every 4096-sample tile seam, sparse above
+    samples elsewhere, a quantized track full of ties with -0.0 among its
+    zeros."""
+    g = torch.Generator().manual_seed(seed)
+    above = torch.rand((batch, n), generator=g) < 0.002
+    for s in range(4096, n, 4096):
+        off = int(torch.randint(-40, 40, (1,), generator=g))
+        above[:, max(s + off - 30, 0): s + off + 30: 3] = True
+    track = torch.randint(0, 4, (batch, n), generator=g).float()
+    track[torch.rand((batch, n), generator=g) < 0.2] = -0.0
+    return above, track, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,E,tie,emit,carried,lg_off,n_extra", [
+    (2, 8, "last", False, False, None, 0),
+    (7, 8, "first", True, True, -300, 0),
+    (40_000, 8, "last", True, True, 500, 1),  # h larger than a span
+    (1, 1, "first", True, False, None, 3),    # E = 1: overflow
+    (1, 128, "last", True, True, -5000, 3),   # dense ties, full capacity
+])
+def test_cuda_gate_events_spans_match_plain(cuda, h, E, tie, emit, carried, lg_off, n_extra):
+    """Kernel B over several spans per stream: gates across the seams, a
+    carried gate, Lg inside or past the call, captures."""
+    batch, n, base = 3, 200_000, (1 << 29) if carried else 0
+    above, track, g = _seam_gates(batch, n, h + E)
+    extras = tuple(torch.randn((batch, n), generator=g) for _ in range(n_extra))
+    kw = dict(hysteresis=h, max_events=E, valid_from=base + 10, tie=tie, emit_unclosed=emit,
+              base_index=base)
+    if carried:
+        gi = torch.tensor([[base - min(h, 5), 2], [-1, 0], [base - 1, 1]], dtype=torch.int32)
+        kw.update(stream_len_global=base + n + lg_off, gate_init=gi)
+    ref, ref_cap, ref_gate = extract_gate_events_carried(above, track, extras, **kw)
+    dev = lambda t: t.to(cuda)  # noqa: E731
+    kw_c = {k: dev(v) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    if extras:
+        table, cap, gate_out = F.gate_events_capture(dev(above), dev(track), tuple(map(dev, extras)),
+                                                     **kw_c, emit_state=True)
+        assert torch.equal(cap.cpu(), ref_cap)
+    else:
+        table, gate_out = F.gate_events(dev(above), dev(track), **kw_c, emit_state=True)
+    assert_tables_equal(ref, table, "kernel B over spans")
+    assert torch.equal(table.peak_value.cpu(), ref.peak_value)
+    assert torch.equal(torch.signbit(table.peak_value.cpu()), torch.signbit(ref.peak_value))
+    assert torch.equal(gate_out.cpu(), ref_gate)
+    assert int(ref.count.sum()) > 0
