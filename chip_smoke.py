@@ -26,7 +26,10 @@ checkout, then, for each ported path:
   against the CPU `detect` and the `zc` / `zc_v2` simulations, and times
   bench.py's ZC workloads (the CFAR and from-IQ detectors at 512 x 262144
   (x 2 branches), kernel E and E -> D -> B at 64 x 262144 x 2, T = 2048)
-  against the plain versions and kernel E against one `conv1d` call;
+  against the plain versions and kernel E against one `conv1d` call; the
+  from-IQ headline also runs in 4 shards, each primed from its left
+  neighbour's halo (kernel D's primed IQ mode), against the one-shot run
+  and the plain version;
 * streaming (phases 13-15): kernel A's full-metric and corr/energy modes at
   the Minn headline size and the primed (carried-state) modes of kernels A,
   B, C and D against their plain versions; the fused stream steps
@@ -66,9 +69,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-#: ``--timing [TREE]``: only the timed phases (5, 13, 15), on the kernels of
-#: the checkout TREE (default: this one), so that two trees are timed by
-#: the same script on the same card
+#: ``--timing [TREE]``: only the timed phases (5, 13, 15, and the kernel C
+#: and D timings of 9 and 12), on the kernels of the checkout TREE (default:
+#: this one), so that two trees are timed by the same script on the same card
 TIMING = "--timing" in sys.argv[1:]
 _AT = sys.argv.index("--timing") + 1 if TIMING else 0
 TREE = os.path.abspath(sys.argv[_AT]) if TIMING and _AT < len(sys.argv) else ROOT
@@ -78,6 +81,7 @@ from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import build  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
+from ofdm_sync_tpu_torch.kernels import streaming as SP  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import streaming_chunked as ST  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
@@ -633,8 +637,7 @@ def phase_aa_headline(dev, card: str) -> dict:
         raise AssertionError("aa headline: events in noise-only streams")
     torch.cuda.empty_cache()
     t_fused = cuda_ms(lambda: AF.aa_detect_fused(x, half_len=lag))
-    t_metric = cuda_ms(lambda: AF.aa_metric_planar(x, half_len=lag))
-    t_c = cuda_ms(lambda: AF.aa_metric(x, half_len=lag, threshold=AA_THR))
+    tc = aa_timings(x, lag, card)
     o = AF.aa_metric(x, half_len=lag, threshold=AA_THR)
     b_work_capture = b_work(o.above, gated_samples(o.above, AA_HYST), n_extra=3)
     t_b = cuda_ms(lambda: F.gate_events_capture(o.above, o.track, (o.P_re, o.P_im, o.M),
@@ -648,13 +651,42 @@ def phase_aa_headline(dev, card: str) -> dict:
     del st, track, M, above
     torch.cuda.empty_cache()
     N = B * n
-    res = dict(fused_ms=t_fused, c_ms=t_c, b_ms=t_b, metric_mode_ms=t_metric,
-               plain_c_ms=t_pc, plain_b_ms=t_pb, plain_ms=t_pc + t_pb,
-               b_capture_work=b_work_capture)
-    log(f"  kernels C+B {t_fused:.3f} ms = {N / t_fused * 1e3:.4g} samples/s (C {t_c:.3f} ms, "
-        f"B with capture {t_b:.3f} ms; C metric mode {t_metric:.3f} ms); plain "
+    res = dict(fused_ms=t_fused, b_ms=t_b, plain_c_ms=t_pc, plain_b_ms=t_pb,
+               plain_ms=t_pc + t_pb, b_capture_work=b_work_capture, **tc)
+    log(f"  kernels C+B {t_fused:.3f} ms = {N / t_fused * 1e3:.4g} samples/s (C "
+        f"{tc['c_ms']:.3f} ms, B with capture {t_b:.3f} ms); plain "
         f"{t_pc + t_pb:.3f} ms = {N / (t_pc + t_pb) * 1e3:.4g} samples/s (metric {t_pc:.3f}, "
         f"events {t_pb:.3f}); card {card}")
+    return res
+
+
+def aa_timings(x, lag: int, card: str) -> dict:
+    """Kernel C at the [A][A] headline: detect mode on float32 and on int16
+    codes, metric mode on float32; CUDA events (one call) and the profiler's
+    device time (the kernel alone)."""
+    x16 = x.to(torch.int16)
+    runs = (("c", lambda: AF.aa_metric(x, half_len=lag, threshold=AA_THR)),
+            ("c_i16", lambda: AF.aa_metric(x16, half_len=lag, threshold=AA_THR)),
+            ("metric_mode", lambda: AF.aa_metric_planar(x, half_len=lag)))
+    res = {}
+    for name, fn in runs:
+        res[f"{name}_ms"], res[f"{name}_kernel_ms"] = cuda_ms(fn), kernel_ms(fn)
+    del x16
+    torch.cuda.empty_cache()
+    log(f"  kernel C: detect f32 {res['c_ms']:.3f} ms (profiler {res['c_kernel_ms']}), int16 "
+        f"{res['c_i16_ms']:.3f} ({res['c_i16_kernel_ms']}), metric mode "
+        f"{res['metric_mode_ms']:.3f} ({res['metric_mode_kernel_ms']}); card {card}")
+    return res
+
+
+def timing_aa(dev, card: str) -> dict:
+    """The timed part of phase 9 alone (``--timing``)."""
+    B, n, lag = AA_HEADLINE["batch"], AA_HEADLINE["n"], AA_HEADLINE["lag"]
+    log(f"== [A][A] headline timing, {B} x {n} x 2 branches, L={lag}")
+    x = aa_stimulus(B, n, lag, dev, events=[(0, 3 * lag), (1, n // 3)])
+    res = aa_timings(x, lag, card)
+    del x
+    torch.cuda.empty_cache()
     return res
 
 
@@ -728,12 +760,16 @@ def check_mf(x, taps, what: str) -> float:
 
 def zc_knife_bits(above, ref_above, mag, what: str) -> int:
     """Above bits where kernel D and the plain version differ; raises if
-    one lies off the knife edge."""
+    one lies off the knife edge.  ``mag``: the plain magnitudes of the
+    compared samples, optionally with the magnitudes before them (the
+    window's history) in front."""
     diff = above != ref_above
     if not bool(diff.any()):
         return 0
-    e_s = running_sum_stream(mag, ZC_CFAR["corr_window"]) * float(ZC_CFAR["threshold_value"])
-    margin = (mag * float(1 << ZC_CFAR["threshold_frac_bits"]) - e_s).abs()
+    n = above.shape[-1]
+    e_s = (running_sum_stream(mag, ZC_CFAR["corr_window"])[..., -n:]
+           * float(ZC_CFAR["threshold_value"]))
+    margin = (mag[..., -n:] * float(1 << ZC_CFAR["threshold_frac_bits"]) - e_s).abs()
     if (diff & ~(margin <= ZC_KNIFE_RTOL * e_s.abs())).any():
         raise AssertionError(f"{what}: above differs off the knife edge at "
                              f"{diff.nonzero()[:5].tolist()}")
@@ -922,8 +958,10 @@ def phase_zc_headline(dev, card: str) -> dict:
         table, _ = check_zc_iq(mf, iq, R, ref_norm, f"zc_iq headline {name}")
         check_found(table, f"zc_iq headline {name}")
         res[f"iq_{name}_ms"] = cuda_ms(lambda: ZF.zc_iq_cfar_detect(mf, iq, **kw))
-        res[f"d_iq_{name}_ms"] = cuda_ms(lambda: ZF.zc_metric(mf, iq, **kw))
+    del x16
     o = ZF.zc_metric(mf, x, **kw)
+    res.update(zc_timings(mf, x, o.mag[:, :n].contiguous(), kw, card))
+    res.update(zc_shards(mf, x, o, kw, card))
     res["b_ms"] = cuda_ms(lambda: F.gate_events(o.above, o.mag, **ZC_EVENTS))
     res["plain_d_iq_ms"] = cuda_ms(lambda: zc_iq_planar(mf, x, **kw))
     mag_p, above_p = zc_iq_planar(mf, x, **kw)
@@ -939,14 +977,13 @@ def phase_zc_headline(dev, card: str) -> dict:
 
     # the CFAR detector (#7) on the kernel's own magnitudes, first n samples
     mag = o.mag[:, :n].contiguous()
-    del o, mf, x16
+    del o, mf
     torch.cuda.empty_cache()
     table = ZF.zc_cfar_detect(mag, **ZC_CFAR)
     check_zc_table(table, ZF.zc_metric(mag, **ZC_CFAR).above, zc_cfar_planar(mag, **ZC_CFAR), mag,
                    "zc_cfar headline")
     check_found(table, "zc_cfar headline")
     res["cfar_ms"] = cuda_ms(lambda: ZF.zc_cfar_detect(mag, **ZC_CFAR))
-    res["d_mag_ms"] = cuda_ms(lambda: ZF.zc_metric(mag, **ZC_CFAR))
     res["plain_cfar_ms"] = cuda_ms(lambda: extract_gate_events(
         zc_cfar_planar(mag, **ZC_CFAR), mag, **ZC_EVENTS))
     del mag
@@ -987,6 +1024,118 @@ def phase_zc_headline(dev, card: str) -> dict:
         f"{N / res['e2e_ms'] * 1e3:.4g} samples/s, plain {res['plain_e2e_ms']:.3f} ms "
         f"({Bm} x {n} x 2 branches, T = {R}); one conv1d call (cuDNN, TF32 off) "
         f"{res['library_e_ms']:.3f} ms; card {card}")
+    return res
+
+
+def zc_timings(mf, x, mag, kw: dict, card: str) -> dict:
+    """Kernel D at the ZC headline: IQ mode on float32 and on int16 IQ, and
+    magnitude mode on the CFAR cell's magnitudes; CUDA events (one call)
+    and the profiler's device time (the kernel alone)."""
+    x16 = x.to(torch.int16)
+    runs = (("d_iq_f32", lambda: ZF.zc_metric(mf, x, **kw)),
+            ("d_iq_i16", lambda: ZF.zc_metric(mf, x16, **kw)),
+            ("d_mag", lambda: ZF.zc_metric(mag, **ZC_CFAR)))
+    res = {}
+    for name, fn in runs:
+        res[f"{name}_ms"], res[f"{name}_kernel_ms"] = cuda_ms(fn), kernel_ms(fn)
+    del x16
+    torch.cuda.empty_cache()
+    log(f"  kernel D: IQ f32 {res['d_iq_f32_ms']:.3f} ms (profiler {res['d_iq_f32_kernel_ms']}), "
+        f"int16 {res['d_iq_i16_ms']:.3f} ({res['d_iq_i16_kernel_ms']}), magnitude "
+        f"{res['d_mag_ms']:.3f} ({res['d_mag_kernel_ms']}); card {card}")
+    return res
+
+
+def timing_zc(dev, card: str) -> dict:
+    """The timed kernel-D part of phase 12 alone (``--timing``)."""
+    B, n = ZC_HEADLINE["batch"], ZC_HEADLINE["n"]
+    ref, taps, ref_norm = pss_template(2048)
+    log(f"== ZC headline timing, {B} x {n} x 2 branches, R = W = {len(ref)}")
+    x = zc_iq_stimulus(B, n, ref, dev, events=[(0, 3000), (1, n // 3)])
+    mf = MF.matched_filter_ols(x, taps)
+    kw = dict(ref_len=len(ref), ref_norm=ref_norm, **ZC_CFAR)
+    mag = ZF.zc_metric(mf, x, **kw).mag[:, :n].contiguous()
+    res = zc_timings(mf, x, mag, kw, card)
+    del x, mf, mag
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the ZC from-IQ headline cut into this many shards on the one card
+ZC_SHARDS = 4
+
+
+def zc_shards(mf, x, one, kw: dict, card: str) -> dict:
+    """The from-IQ headline in ZC_SHARDS shards of the correlation axis on
+    the one card, each primed from its left neighbour's mf and IQ halos
+    (#9's shard mode; zeros for shard 0): the launch counts of the shard
+    mode, then per shard mag bit-equal to the one-shot run ``one`` over the
+    same global range, above off the knife edge equal to it, and the gate
+    carry and D + B table equal to the plain version over [halo; shard];
+    one shard's kernel D timed."""
+    C, B, Lc = mf.shape
+    n, R, W, h = x.shape[-1], kw["ref_len"], kw["corr_window"], ZC_EVENTS["hysteresis"]
+    Wh = ZF.zc_tm_halo_rows(R, W, h)
+    block = -(-Lc // ZC_SHARDS)
+    log(f"  {ZC_SHARDS} shards of {block} correlation outputs, halo {Wh}")
+
+    def iq_cols(lo, hi):  # the IQ zero-padded to Lc, columns lo .. hi
+        out = torch.zeros((C, B, hi - lo), device=x.device)
+        if lo < n:
+            out[..., : min(hi, n) - lo] = x[..., lo: min(hi, n)]
+        return out
+
+    shards, zeros = [], torch.zeros((C, B, Wh), device=mf.device)
+    for s in range(ZC_SHARDS):
+        lo, hi = s * block, min((s + 1) * block, Lc)
+        halo = (mf[..., lo - Wh: lo].contiguous(), iq_cols(lo - Wh, lo)) if s else (zeros, zeros)
+        shards.append((lo, hi, mf[..., lo:hi].contiguous(), x[..., lo: min(hi, n)].contiguous(),
+                       halo))
+    ev = {k: v for k, v in ZC_EVENTS.items() if k != "valid_from"}
+    reset_launch_counts()
+    tables = [ZF.zc_iq_cfar_detect(mf_s, iq_s, **kw, **ev, base_index=lo, stream_len_global=Lc,
+                                   shard_init=halo) for lo, _, mf_s, iq_s, halo in shards]
+    torch.cuda.synchronize()
+    modes = mode_launch_counts()
+    if min(modes.get("zc_metric/primed_iq", 0), modes.get("gate_events/primed", 0)) < ZC_SHARDS:
+        raise AssertionError(f"the {ZC_SHARDS} shards launched {modes}")
+    res = {"shard_launches": modes["zc_metric/primed_iq"], "shard_knife_bits": 0,
+           "shard_events": 0, "shard_mag_err": 0.0}
+    for (lo, hi, mf_s, iq_s, halo), table in zip(shards, tables):
+        what = f"shard at {lo}"
+        o = ZF.zc_metric(mf_s, iq_s, **kw, base_index=lo, hist_init=halo, hysteresis=h)
+        mag_p, above_p, gate_p = SP.zc_iq_planar_primed(mf_s, iq_s, *halo, **kw, base_index=lo,
+                                                     hysteresis=h)
+        torch.cuda.synchronize()
+        res["shard_mag_err"] = max(res["shard_mag_err"],
+                                   check_equal(o.mag, one.mag[:, lo:hi], f"{what} mag vs one-shot"),
+                                   check_equal(o.mag, mag_p, f"{what} mag vs plain"))
+        hist_mag = one.mag[:, max(lo - W, 0): hi]
+        res["shard_knife_bits"] += zc_knife_bits(o.above, one.above[:, lo:hi], hist_mag,
+                                                 f"{what} vs one-shot")
+        knife = zc_knife_bits(o.above, above_p, hist_mag, f"{what} vs plain")
+        check_equal(o.gate_init, gate_p, f"{what} gate_init")
+        rt, _, _ = extract_gate_events_carried(o.above if knife else above_p, mag_p, (), **ev,
+                                               valid_from=W, base_index=lo,
+                                               stream_len_global=Lc, gate_init=gate_p)
+        assert_tables_equal(rt, table, f"{what} D + B")
+        res["shard_events"] += int(table.count.sum())
+        del o, mag_p, above_p
+    lo, hi, mf_s, iq_s, halo = shards[1]
+    run = lambda: ZF.zc_metric(mf_s, iq_s, **kw, base_index=lo, hist_init=halo,  # noqa: E731
+                               hysteresis=h)
+    res["shard_d_ms"], res["shard_d_device_ms"] = cuda_ms(run), device_ms(run)
+    res["shard_d_kernel_ms"] = kernel_ms(run)
+    res["plain_shard_d_ms"] = cuda_ms(lambda: SP.zc_iq_planar_primed(
+        mf_s, iq_s, *halo, **kw, base_index=lo, hysteresis=h))
+    res["shard_work"] = d_iq_work(B, hi - lo, iq_s.shape[-1], C, 4, hist_len=Wh)
+    del shards, tables
+    torch.cuda.empty_cache()
+    log(f"  shards: mag == one-shot and == plain, tables == plain over [halo; shard] "
+        f"({res['shard_events']} events, {res['shard_knife_bits']} knife-edge bits vs one-shot); "
+        f"primed D per shard {res['shard_d_ms']:.3f} ms (back to back "
+        f"{res['shard_d_device_ms']:.4f}, profiler {res['shard_d_kernel_ms']}), plain "
+        f"{res['plain_shard_d_ms']:.3f}; card {card}")
     return res
 
 
@@ -1048,8 +1197,13 @@ def d_mag_work(batch, L, hist_len=0):
     return batch * L * (4 + 1) + batch * hist_len * 4, batch * L * 8
 
 
-def d_iq_work(batch, Lc, L_iq, C, itemsize):
-    return batch * (Lc * (C * 4 + 5) + L_iq * C * itemsize), batch * Lc * (4 * C + 12)
+def d_iq_work(batch, Lc, L_iq, C, itemsize, hist_len=0):
+    """Kernel D in IQ mode: mf and IQ (and the halos) read once, mag and
+    above (and the gate carry) written once; per output 4C + 12 flops."""
+    nbytes = batch * (Lc * (C * 4 + 5) + L_iq * C * itemsize)
+    if hist_len:
+        nbytes += batch * (hist_len * C * (4 + itemsize) + 8)
+    return nbytes, batch * (Lc + hist_len) * (4 * C + 12)
 
 
 def e_work(x, T, out_len):
@@ -1644,6 +1798,7 @@ def phase_latency(dev, card: str) -> dict:
     run_c = lambda: AF.aa_metric(pa, half_len=lag, threshold=AA_THR,  # noqa: E731
                                  base_index=chunk, hist_init=ha)
     res["c_primed_ms"], res["c_primed_device_ms"] = cuda_ms(run_c), device_ms(run_c)
+    res["c_primed_kernel_ms"] = kernel_ms(run_c)
     res["plain_c_primed_ms"] = cuda_ms(plain_c)
     res["c_primed_work"] = c_work(B, chunk, 4, 4, 17, hist_len=1024)
     del xa, pa, ha, o
@@ -1654,6 +1809,7 @@ def phase_latency(dev, card: str) -> dict:
                 f"primed D at {B} x {chunk} above")
     run_d = lambda: ZF.zc_metric(pm, **ZC_CFAR, base_index=chunk, hist_init=hm)  # noqa: E731
     res["d_primed_ms"], res["d_primed_device_ms"] = cuda_ms(run_d), device_ms(run_d)
+    res["d_primed_kernel_ms"] = kernel_ms(run_d)
     res["plain_d_primed_ms"] = cuda_ms(lambda: zc_cfar_planar(pm, **ZC_CFAR, base_index=chunk,
                                                               hist=hm))
     res["d_primed_work"] = d_mag_work(B, chunk, hist_len=2048)
@@ -1666,7 +1822,8 @@ def phase_latency(dev, card: str) -> dict:
         f"{res['d_primed_ms']:.3f} (plain {res['plain_d_primed_ms']:.3f}); back to back: A "
         f"{res['a_primed_device_ms']:.4f}, B {res['b_primed_device_ms']:.4f}, C "
         f"{res['c_primed_device_ms']:.4f}, D {res['d_primed_device_ms']:.4f} ms; profiler: A "
-        f"{res['a_primed_kernel_ms']}, B {res['b_primed_kernel_ms']} ms; card {card}")
+        f"{res['a_primed_kernel_ms']}, B {res['b_primed_kernel_ms']}, C "
+        f"{res['c_primed_kernel_ms']}, D {res['d_primed_kernel_ms']} ms; card {card}")
     return res
 
 
@@ -1716,6 +1873,7 @@ def main() -> int:
     if TIMING:
         log(f"== timing the kernels of {TREE}")
         out = {"tree": TREE, "headline": phase_headline(dev, card), "long": phase_long(dev, card),
+               "aa_headline": timing_aa(dev, card), "zc_headline": timing_zc(dev, card),
                "stream_kernels": phase_stream_kernels(dev, card)["res"],
                "latency": phase_latency(dev, card)}
         print(json.dumps(out))
@@ -1785,6 +1943,9 @@ def main() -> int:
         ("zc_metric[primed magnitude]", "zc_cfar.cu", "ofdm_sync_tpu/kernels/pallas_zc.py:35",
          modes.get("zc_metric/primed", 0), 0.0, lat["d_primed_ms"], lat["plain_d_primed_ms"],
          lat["d_primed_work"], None),
+        ("zc_metric[primed IQ]", "zc_cfar.cu", "ofdm_sync_tpu/kernels/pallas_zc_tm.py:78",
+         zc_head["shard_launches"], zc_head["shard_mag_err"], zc_head["shard_d_ms"],
+         zc_head["plain_shard_d_ms"], zc_head["shard_work"], None),
         ("matched_filter_ols", "matched_filter.cu", "ofdm_sync_tpu/kernels/pallas_mf.py:137",
          zc_launches["matched_filter_ols"], zc_k["mf_err"], zc_head["e_ms"],
          zc_head["plain_e_ms"], zc_head["e_work"], zc_head["library_e_ms"]),
@@ -1794,6 +1955,7 @@ def main() -> int:
         "minn_rtl_metric int16": bound(*a_work(B, L, 4, 2, 5)),
         "minn_rtl_metric[full] int16": bound(*a_work(B, L, 4, 2, 13)),
         "aa_metric metric mode": bound(*c_work(B, AA_HEADLINE["n"], 4, 4, 12)),
+        "aa_metric int16": bound(*c_work(B, AA_HEADLINE["n"], 4, 2, 17)),
         "zc_metric magnitude, CFAR cell": bound(*d_mag_work(ZC_HEADLINE["batch"], n)),
         "zc_metric IQ int16": bound(*d_iq_work(ZC_HEADLINE["batch"], n + 2047, n, 4, 2)),
     }

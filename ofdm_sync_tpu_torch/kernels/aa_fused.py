@@ -5,10 +5,13 @@ Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_aa.py:_aa_metric_kernel`
 (`aa_detect_fused_pallas`, #6).  On the H100 the work is two CUDA kernels:
 
 * kernel C, `aa_metric` (`csrc/aa_metric.cu`): the lag-L correlation P and
-  window power R, branch-combined, one CTA per (time chunk, stream), each
-  chunk independent given a 2L - 1 sample left halo (the metric has no
-  IIR).  Metric mode returns (P_re, P_im, R); detect mode returns P_re,
-  P_im, M, the tracked |P|^2 and the gate input ``above``;
+  window power R, branch-combined.  Each CTA walks a span of consecutive
+  tiles of one stream in order, keeping the last 2L + 1024 samples of every
+  plane in a shared ring and the three window sums as running float64
+  values; a span primes once from its 2L-sample left halo (the metric has
+  no IIR), or at the stream's head from the history.  Metric mode returns
+  (P_re, P_im, R); detect mode returns P_re, P_im, M, the tracked |P|^2 and
+  the gate input ``above``;
 * kernel B, `gate_events` (`csrc/gate_events.cu`), shared with the
   Minn-RTL detector, in its capture mode: the event table plus (P_re,
   P_im, M) read at each slot's peak.
@@ -41,7 +44,6 @@ import torch
 from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
-    _SMEM_LIMIT,
     _check_input,
     _count,
     _history,
@@ -55,11 +57,6 @@ from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar as _plain
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
 
-#: output samples per kernel-C CTA
-CHUNK = 4096
-#: kernel C's grid runs streams along gridDim.y
-_MAX_BATCH = 65535
-
 
 class AAMetricRows(NamedTuple):
     """Kernel C's outputs, each (batch, L); the fields a mode does not
@@ -71,11 +68,6 @@ class AAMetricRows(NamedTuple):
     M: torch.Tensor | None
     track: torch.Tensor | None
     above: torch.Tensor | None
-
-
-def smem_bytes(half_len: int) -> int:
-    """Kernel C's dynamic shared memory: three float64 prefix arrays."""
-    return 3 * (half_len + CHUNK) * 8
 
 
 def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
@@ -102,11 +94,6 @@ def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
         return AAMetricRows(st.P_re, st.P_im, None, M, track, above)
     if not x.is_contiguous():
         raise ValueError("kernel C needs a contiguous input")
-    if smem_bytes(lag) > _SMEM_LIMIT:
-        raise ValueError(f"half_len {lag} needs {smem_bytes(lag)} B of shared memory, "
-                         f"more than the {_SMEM_LIMIT} B a Hopper CTA has")
-    if batch > _MAX_BATCH:
-        raise ValueError(f"kernel C takes <= {_MAX_BATCH} streams")
     check_index_range(base, L)
     new = lambda dt: torch.empty((batch, L), dtype=dt, device=x.device)  # noqa: E731
     detect = threshold is not None
@@ -116,7 +103,7 @@ def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
                        if detect else (None, None, None))
     if batch and L:
         err = build.library().aa_metric(
-            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag, CHUNK,
+            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag,
             0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
             threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r), _ptr(track),
             _ptr(m), _ptr(above), _stream(x))

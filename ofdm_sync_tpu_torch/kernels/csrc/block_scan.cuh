@@ -1,12 +1,13 @@
 // Scans shared by the kernels.
 //
-// Every block_* helper is called by ALL threads of the block (it contains
+// The block_* helper is called by ALL threads of the block (it contains
 // __syncthreads), needs blockDim.x to be a multiple of 32 and at most 1024,
 // and takes a 32-entry shared scratch array that it leaves free for reuse
-// on return; the pair and map operations beside them also serve warp scans
-// written in the kernels.  Exclusive prefixes are formed by shuffling the
-// inclusive prefix one lane up, never by subtracting the own value, so a
-// float scan adds each term exactly once.
+// on return; the pair and map operations beside it serve warp scans written
+// in the kernels (span_walk.cuh has the float64 warp scan of C and D).
+// Exclusive prefixes are formed by shuffling the inclusive prefix one lane
+// up, never by subtracting the own value, so a float scan adds each term
+// exactly once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,88 +23,6 @@ __device__ __forceinline__ double2 add2(double2 a, double2 b) {
 
 __device__ __forceinline__ double2 shfl_up2(double2 v, int d) {
   return make_double2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
-}
-
-// ---- (sum, sum, sum) triple in float64: the [A][A] prefix sums ----------
-__device__ __forceinline__ double3 add3(double3 a, double3 b) {
-  return make_double3(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-
-__device__ __forceinline__ double3 shfl_up3(double3 v, int d) {
-  return make_double3(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d),
-                      __shfl_up_sync(kFull, v.z, d));
-}
-
-// inclusive prefix of v over the block, and the block total in *total
-__device__ __forceinline__ double3 block_incl_sum3(double3 v, double3* sbuf,
-                                                   double3* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const double3 zero = make_double3(0.0, 0.0, 0.0);
-  double3 inc = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const double3 o = shfl_up3(inc, d);
-    if (lane >= d) inc = add3(o, inc);
-  }
-  if (lane == 31) sbuf[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    double3 t = lane < nw ? sbuf[lane] : zero;
-    for (int d = 1; d < 32; d <<= 1) {
-      const double3 o = shfl_up3(t, d);
-      if (lane >= d) t = add3(o, t);
-    }
-    if (lane < nw) sbuf[lane] = t;  // inclusive warp totals
-  }
-  __syncthreads();
-  const double3 r = warp > 0 ? add3(sbuf[warp - 1], inc) : inc;
-  *total = sbuf[nw - 1];
-  __syncthreads();
-  return r;
-}
-
-// ---- N sums in float64: the ZC energy and magnitude prefix sums -----------
-template <int N>
-struct DVec {
-  double v[N];
-};
-
-// inclusive prefix of each of the N sums over the block, block totals in *total
-template <int N>
-__device__ __forceinline__ DVec<N> block_incl_sum_n(DVec<N> x, DVec<N>* sbuf, DVec<N>* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  DVec<N> inc = x;
-  for (int d = 1; d < 32; d <<= 1) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const double o = __shfl_up_sync(kFull, inc.v[k], d);
-      if (lane >= d) inc.v[k] = o + inc.v[k];
-    }
-  }
-  if (lane == 31) sbuf[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    DVec<N> t;
-#pragma unroll
-    for (int k = 0; k < N; ++k) t.v[k] = lane < nw ? sbuf[lane].v[k] : 0.0;
-    for (int d = 1; d < 32; d <<= 1) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        const double o = __shfl_up_sync(kFull, t.v[k], d);
-        if (lane >= d) t.v[k] = o + t.v[k];
-      }
-    }
-    if (lane < nw) sbuf[lane] = t;  // inclusive warp totals
-  }
-  __syncthreads();
-  if (warp > 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) inc.v[k] = sbuf[warp - 1].v[k] + inc.v[k];
-  }
-  *total = sbuf[nw - 1];
-  __syncthreads();
-  return inc;
 }
 
 // ---- affine maps s -> A*s + B in float32: the smoothing recurrence (warp scan)

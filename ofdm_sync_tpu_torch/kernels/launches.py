@@ -5,8 +5,9 @@ kernel on a card, and nowhere else (a CPU tensor runs the plain version and
 counts nothing); at the same place it adds one to ``.modes[name]`` for each
 mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
 ``corr_energy``, and ``primed``; kernels B, C, D: ``primed``, the
-carried-state mode).  A run shows that it went through the kernels by
-resetting the counts, driving its path and reading them.
+carried-state mode, which for D is its magnitude mode; D's IQ mode with a
+halo or a global base: ``primed_iq``).  A run shows that it went through
+the kernels by resetting the counts, driving its path and reading them.
 """
 
 from __future__ import annotations

@@ -17,9 +17,10 @@ These are the plain versions of the CUDA kernels in `kernels/csrc/`:
 * Zadoff-Chu CFAR: the gate input of kernel D (`zc_cfar.cu`), on a given
   correlation magnitude (`zc_cfar_planar`) or from the matched filter's
   output and the IQ (`zc_iq_planar`: per-branch window energy,
-  normalization, branch sum, magnitude).  Energies and local sums come
-  from float64 cumulative sums cast once to float32; on integer-valued IQ
-  the magnitude agrees with kernel D bit for bit.
+  normalization, branch sum, magnitude; `zc_iq_planar_primed`: the same
+  over [halo; shard], with the gate carry from the halo).  Energies and
+  local sums come from float64 cumulative sums cast once to float32; on
+  integer-valued IQ the magnitude agrees with kernel D bit for bit.
 
 Primed mode (the kernels' carried state, `pallas_minn.py:_detect_kernel`
 and its AA / ZC twins with ``base_index`` / ``shard_init``): ``hist`` holds
@@ -259,3 +260,26 @@ def zc_iq_planar(mf: torch.Tensor, iq: torch.Tensor, *, ref_len: int, ref_norm: 
         im = im + mf[2 * b + 1] * inv[b]
     mag = torch.sqrt(re * re + im * im)
     return mag, cfar_gate(mag, **cfar)[0]
+
+
+def zc_iq_planar_primed(mf: torch.Tensor, iq: torch.Tensor, mf_halo: torch.Tensor,
+                        iq_halo: torch.Tensor, *, ref_len: int, ref_norm: float,
+                        base_index: int, hysteresis: int, **cfar):
+    """Kernel D's primed IQ mode (the shard mode of
+    `pallas_zc_tm.py:134-200`): `zc_iq_planar` over [halo; shard], the
+    halos (2*BR, batch, Hh) right-aligned before sample 0 of mf and IQ, with
+    sample 0 at global index ``base_index`` (`cfar_gate`'s other keywords).
+    Returns (mag, above) of the shard and gate_init (batch, 2) int32 [la, la
+    >= 0]: la the largest global index among the halo's last max(h, 1)
+    samples whose CFAR decision is true, -1 for none."""
+    Hh = mf_halo.shape[-1]
+    mag, above = zc_iq_planar(
+        torch.cat([mf_halo.to(torch.float32), mf], dim=-1),
+        torch.cat([iq_halo.to(torch.float32), iq.to(torch.float32)], dim=-1),
+        ref_len=ref_len, ref_norm=ref_norm, base_index=base_index - Hh, **cfar)
+    first = max(Hh - max(int(hysteresis), 1), 0)
+    idx = base_index - Hh + torch.arange(first, Hh, device=mf.device)
+    la = torch.where(above[..., first:Hh], idx, -1).amax(dim=-1) if Hh > first else \
+        torch.full(mf.shape[1:2], -1, dtype=torch.int64, device=mf.device)
+    gate_init = torch.stack([la, (la >= 0).long()], dim=-1).to(torch.int32)
+    return mag[..., Hh:], above[..., Hh:], gate_init

@@ -242,7 +242,6 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         gate_events_capture(torch.zeros((1, 10), dtype=torch.bool), torch.zeros((1, 10)),
                             tuple(torch.zeros((1, 10)) for _ in range(4)), hysteresis=2)
-    assert A.smem_bytes(512) == 110_592  # three float64 prefixes at bench.py's L
 
 
 def test_cpu_path_counts_no_launch(rng):

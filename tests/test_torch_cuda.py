@@ -40,7 +40,11 @@ from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
 )
 from ofdm_sync_tpu_torch.kernels.streaming import minn_rtl_metric_planar  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar  # noqa: E402
-from ofdm_sync_tpu_torch.kernels.streaming import zc_cfar_planar, zc_iq_planar  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
+    zc_cfar_planar,
+    zc_iq_planar,
+    zc_iq_planar_primed,
+)
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
 from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import MinnRTLDetector  # noqa: E402
@@ -500,3 +504,120 @@ def test_cuda_gate_events_spans_match_plain(cuda, h, E, tie, emit, carried, lg_o
     assert torch.equal(torch.signbit(table.peak_value.cpu()), torch.signbit(ref.peak_value))
     assert torch.equal(gate_out.cpu(), ref_gate)
     assert int(ref.count.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D walk spans too: several spans per stream at batch 1 and 3,
+# lengths off the tile size, the largest lag kernel C's parent took, and the
+# kernels' other layouts (kernel C with more than two branches; D with 1-4).
+
+
+def _zc_knife_only(above, ref_above, mag_ext, W, T):
+    """Kernel D's above vs the plain bits: differences only where |mag * 2^15
+    - local * T| is within 1e-6 of local * T (mag_ext: the plain magnitudes
+    with any history before the compared samples)."""
+    n = above.shape[-1]
+    e_s = running_sum_stream(mag_ext, W)[..., -n:] * float(T)
+    margin = (mag_ext[..., -n:] * float(1 << 15) - e_s).abs()
+    assert not ((above != ref_above) & (margin > 1e-6 * e_s.abs())).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lag,branches", [(37, 2), (128, 2), (512, 2), (5546, 2), (512, 4),
+                                          (2000, 3), (5546, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cuda_aa_metric_spans_match_plain(cuda, lag, branches, dtype, batch):
+    """Kernel C in both modes, plain and primed, bit-equal to the plain
+    version over several spans per stream (5546: the parent's largest lag;
+    4 branches at that lag: no ring fits, the delayed samples come from
+    global memory)."""
+    L = 100_003 if lag < 5000 else 70_001
+    g = torch.Generator(device=cuda).manual_seed(lag + batch)
+    noise = lambda n: (torch.randn((2 * branches, batch, n), generator=g,  # noqa: E731
+                                   device=cuda) * 8).round()
+    x = noise(L)
+    half = (torch.randn((2, lag), generator=g, device=cuda) * 72).round()  # [A][A] halves
+    for b in range(batch):
+        for p in range(2000 + 300 * b, L - 2 * lag - 10, 20_000):
+            x[:, b, p: p + 2 * lag] += half.repeat(branches, 2)
+    x = x.to(dtype)
+    for primed in (False, True):
+        base = 123_457 if primed else 0
+        hist = noise(2 * lag + 77) if primed else None
+        pk = dict(base_index=base, hist_init=hist)
+        st = aa_metric_planar(F._planar_view(x), lag, base_index=base,
+                              hist=None if hist is None else F._planar_view(hist))
+        m = AF.aa_metric(x, half_len=lag, **pk)
+        o = AF.aa_metric(x, half_len=lag, threshold=0.15, **pk)
+        track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, 0.15, base)
+        for out, ref in ((m.P_re, st.P_re), (m.P_im, st.P_im), (m.R, st.R), (o.P_re, st.P_re),
+                         (o.P_im, st.P_im), (o.track, track), (o.M, M), (o.above, above)):
+            assert torch.equal(out, ref)
+        assert int(above.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,branches", [(127, 256, 1), (256, 127, 2), (2048, 2048, 2),
+                                          (2048, 256, 3), (127, 2048, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+def test_cuda_zc_metric_spans_match_plain(cuda, R, W, branches, dtype):
+    """Kernel D in IQ mode (mag bit-equal, above knife-only) and in
+    magnitude mode (dyadic magnitudes: above bit-equal) across span seams,
+    with rows of odd length."""
+    g = torch.Generator(device=cuda).manual_seed(R + W + branches)
+    batch, n, T = 3, 60_001, int(4.0 * (1 << 15) / W)
+    C = 2 * branches
+    iq = (torch.randn((C, batch, n), generator=g, device=cuda) * 8).round()
+    mf = torch.randn((C, batch, n + R - 1), generator=g, device=cuda) * (40.0 * R ** 0.5)
+    mf[:, :, 5000::7919] *= 60.0  # peaks, several per span
+    cfar = dict(corr_window=W, threshold_value=T, threshold_frac_bits=15, min_corr_mag=0.25)
+    kw = dict(ref_len=R, ref_norm=3.0 * R ** 0.5, **cfar)
+    o = ZF.zc_metric(mf, iq.to(dtype), **kw)
+    mag, above = zc_iq_planar(mf, iq, **kw)
+    assert torch.equal(o.mag, mag)
+    _zc_knife_only(o.above, above, mag, W, T)
+    assert int(above.sum()) > 0
+    dy = (mag * 1024).round() / 1024
+    m = ZF.zc_metric(dy, **cfar)
+    assert torch.equal(m.above, zc_cfar_planar(dy, **cfar))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,h,dtype", [(128, 128, 16, torch.float32),
+                                         (2048, 2048, 256, torch.int16),
+                                         (127, 256, 300, torch.float32)])
+def test_cuda_zc_iq_primed_matches_plain(cuda, R, W, h, dtype):
+    """Kernel D's primed IQ mode (the shard mode of #9) at a random global
+    base: mag, above, gate_init and the D + B table against the plain
+    version over [halo; shard]."""
+    g = torch.Generator(device=cuda).manual_seed(R + h)
+    batch, n, T = 3, 40_003, int(4.0 * (1 << 15) / W)
+    base = int(torch.randint(W, 1 << 30, (1,), generator=g, device=cuda))
+    Wh = ZF.zc_tm_halo_rows(R, W, h)
+    iq = (torch.randn((4, batch, n + Wh), generator=g, device=cuda) * 8).round()
+    mf = torch.randn((4, batch, n + Wh), generator=g, device=cuda) * (40.0 * R ** 0.5)
+    mf[:, [0, 2], Wh - max(h // 2, 1)] *= 100.0  # a gate open across the seam
+    mf[:, :, Wh + 3000::9001] *= 60.0
+    mf_h, mf_s = mf[..., :Wh].contiguous(), mf[..., Wh:].contiguous()
+    iq_h, iq_s = iq[..., :Wh].contiguous(), iq[..., Wh:].contiguous()
+    cfar = dict(corr_window=W, threshold_value=T, threshold_frac_bits=15, min_corr_mag=0.25)
+    kw = dict(ref_len=R, ref_norm=3.0 * R ** 0.5, **cfar)
+    reset_launch_counts()
+    o = ZF.zc_metric(mf_s, iq_s.to(dtype), **kw, base_index=base,
+                     hist_init=(mf_h, iq_h.to(dtype)), hysteresis=h)
+    mag, above, gate = zc_iq_planar_primed(mf_s, iq_s, mf_h, iq_h, **kw, base_index=base,
+                                           hysteresis=h)
+    assert torch.equal(o.mag, mag)
+    mag_ext, _ = zc_iq_planar(mf, iq, **kw, base_index=base - Wh)
+    _zc_knife_only(o.above, above, mag_ext, W, T)
+    assert torch.equal(o.gate_init, gate) and int(gate[:, 1].sum()) >= 2
+    Lg = base + n - 5
+    table = ZF.zc_iq_cfar_detect(mf_s, iq_s.to(dtype), **kw, hysteresis=h, base_index=base,
+                                 stream_len_global=Lg, shard_init=(mf_h, iq_h.to(dtype)))
+    ref, _, _ = extract_gate_events_carried(o.above, o.mag, (), hysteresis=h, max_events=16,
+                                            valid_from=W, tie="first", emit_unclosed=True,
+                                            base_index=base, stream_len_global=Lg,
+                                            gate_init=gate)
+    assert_tables_equal(ref, table, "primed D + B")
+    assert mode_launch_counts()["zc_metric/primed_iq"] == 2

@@ -190,7 +190,8 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         MF.matched_filter_ols(torch.zeros((3, 1, 100)), np.ones(8, np.complex64))
     assert Z.default_threshold(2048) == 64
-    assert Z.smem_bytes(2048, 2048, 2) == 98_304  # three 4096-entry float64 rings
+    # two float64 power rings and a float32 magnitude ring, 3072 entries each
+    assert Z.smem_bytes(2048, 2048, 2) == 61_440
 
 
 def test_cpu_path_counts_no_launch(jdet, rng):
