@@ -41,7 +41,7 @@ SIGNATURES = {
     "zc_cfar_mag_f32": [_P, _P, _I, _LL, _I, _I, _LL, _F, _F, _F, _P, _P],
     "zc_cfar_iq": [_I, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _LL, _I, _F, _F, _F, _F,
                    _P, _P, _P, _P],
-    "matched_filter_f32": [_P, _P, _I, _I, _LL, _I, _LL, _P, _P],
+    "matched_filter_f32": [_P, _P, _P, _I, _I, _LL, _I, _LL, _I, _P, _P],
 }
 
 

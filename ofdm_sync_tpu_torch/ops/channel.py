@@ -54,6 +54,28 @@ def fft_convolve_full(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft(X * H, dim=-1)[..., : L + T - 1]
 
 
+def fft_convolve_full_ols(x: torch.Tensor, taps: torch.Tensor, block: int = 16384) -> torch.Tensor:
+    """Overlap-save full convolution: batched ``block``-point FFTs in place
+    of one monolithic (L+T-1)-point transform, the same output up to float
+    rounding.  ``taps`` must be 1-D (the matched-filter case); the
+    monolithic form takes per-branch banks."""
+    if taps.ndim != 1:
+        raise ValueError("overlap-save form expects 1-D taps")
+    L, T = x.shape[-1], taps.shape[-1]
+    if block < 2 * T:
+        raise ValueError(f"block {block} too small for {T} taps")
+    lead = x.shape[:-1]
+    step = block - T + 1
+    n_out = L + T - 1
+    nblk = -(-n_out // step)
+    pad = torch.nn.functional.pad(x.reshape(-1, L), (T - 1, nblk * step - L))
+    idx = (torch.arange(nblk, device=x.device)[:, None] * step
+           + torch.arange(block, device=x.device)[None, :])
+    Y = torch.fft.ifft(torch.fft.fft(pad[:, idx], dim=-1) * torch.fft.fft(taps, n=block), dim=-1)
+    y = Y[..., T - 1:].reshape(-1, nblk * step)[:, :n_out]
+    return y.reshape(*lead, n_out)
+
+
 def apply_cir(signal, cir, device=None) -> torch.Tensor:
     """Convolve a 1-D signal with an (n_rx, taps) CIR bank -> (n_rx, L+T-1)
     complex64 on ``device``."""

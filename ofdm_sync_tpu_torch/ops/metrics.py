@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full
+from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full, fft_convolve_full_ols
 from ofdm_sync_tpu_torch.ops.windows import (
     delayed_product,
     exp_smooth_shift,
@@ -134,12 +134,29 @@ def _reference(reference, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(reference, device=like.device).to(like.dtype)
 
 
-def matched_filter(rx: torch.Tensor, reference) -> torch.Tensor:
+def matched_filter(rx: torch.Tensor, reference, block: int | None = None, mxu: bool = False,
+                   mxu_precision: str = "bf16x3") -> torch.Tensor:
     """Per-branch full correlation with the conjugate-reversed reference:
-    complex (branches, L + R - 1).  This is the plain FFT form; the CUDA
-    matched filter is `kernels.matched_filter.matched_filter_ols`."""
+    complex (branches, L + R - 1).
+
+    block: the overlap-save block size of `ops.channel.fft_convolve_full_ols`
+    (batched small FFTs); None keeps the monolithic FFT form the reference
+    pipelines are held to.  mxu=True routes through
+    `kernels.matched_filter.matched_filter_ols` (kernel E on a card, at
+    ``mxu_precision``), the JAX package's route to its TPU kernel; the
+    reference may then have at most `kernels.matched_filter.MAX_TAPS`
+    samples."""
     x = _as2d(rx)
     taps = _reference(reference, x).flip(-1).conj()
+    if mxu:
+        from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
+
+        xp = torch.stack([x.real, x.imag], dim=1).to(torch.float32)
+        y = matched_filter_ols(xp.reshape(2 * x.shape[0], 1, x.shape[-1]), taps,
+                               precision=mxu_precision)
+        return torch.complex(y[0::2, 0], y[1::2, 0]).to(x.dtype)
+    if block is not None:
+        return fft_convolve_full_ols(x, taps, block)
     return fft_convolve_full(x, taps.unsqueeze(0))
 
 

@@ -232,19 +232,72 @@ def test_cuda_zc_metric_matches_plain(cuda, R, dtype):
     assert launch_counts()["zc_metric"] == 3 and launch_counts()["gate_events"] == 1
 
 
+def _mf_complex128(x, taps):
+    xc = torch.complex(x[0::2].double(), x[1::2].double())
+    want = fft_convolve_full(xc, torch.complex(taps[0].double(), taps[1].double()))
+    return torch.stack([want.real, want.imag], dim=1).reshape((x.shape[0],) + want.shape[1:])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,n", [(62, 14_335), (2048, 2 * 14_336 + 37), (2049, 5000)])
+@pytest.mark.parametrize("T,n", [(62, 14_335), (2048, 2 * 14_336 + 37), (2049, 5000), (1, 6145),
+                                 (2048, 6143), (300, 12_289), (2049, 100)])
 def test_cuda_matched_filter_matches_complex128(cuda, T, n):
+    """Kernel E against complex128 for taps 1 .. 2049, lengths off the
+    6144-output blocks, a stream shorter than one block; one launch."""
     g = torch.Generator(device=cuda).manual_seed(T)
     x = torch.randn((4, 3, n), generator=g, device=cuda)
     taps = torch.randn((2, T), generator=g, device=cuda)
     reset_launch_counts()
     y = MF.matched_filter_ols(x, taps)
-    xc = torch.complex(x[0::2].double(), x[1::2].double())
-    want = fft_convolve_full(xc, torch.complex(taps[0].double(), taps[1].double()))
-    want = torch.stack([want.real, want.imag], dim=1).reshape(y.shape)
+    want = _mf_complex128(x, taps)
     assert float((y.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert launch_counts()["matched_filter_ols"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_matched_filter_many_streams(cuda):
+    """More than 65,535 complex streams in one launch (all on gridDim.x)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 40_000, 64), generator=g, device=cuda)
+    taps = torch.randn((2, 62), generator=g, device=cuda)
+    reset_launch_counts()
+    y = MF.matched_filter_ols(x, taps)
+    want = _mf_complex128(x, taps)
+    assert float((y.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert launch_counts()["matched_filter_ols"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_matched_filter_modes_bit_identical(cuda):
+    """Every precision and nb gives the same bits, within the 'highest'
+    mode's 2e-6 of the peak (tests/test_pallas_mf.py:74); one launch a call.
+    The precision does not reach the kernel, so it is not crossed with nb."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((4, 2, 30_000), generator=g, device=cuda)
+    taps = torch.randn((2, 2048), generator=g, device=cuda)
+    reset_launch_counts()
+    y = MF.matched_filter_ols(x, taps, precision="highest")
+    want = _mf_complex128(x, taps)
+    assert float((y.double() - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    modes = [dict(precision=p) for p in MF.PRECISIONS] + [dict(nb=nb) for nb in (1, 2, 4)]
+    for kw in modes:
+        assert torch.equal(MF.matched_filter_ols(x, taps, **kw), y)
+    assert launch_counts()["matched_filter_ols"] == 1 + len(modes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_len", [4000, 9000 + 300 - 1, 9000 + 300 - 1 + 2 * 6144 + 17])
+def test_cuda_matched_filter_out_len_exact_zeros(cuda, out_len):
+    """out_len shorter or longer than L + T - 1: the same values where both
+    exist, exactly 0.0 past L + T - 1 (whole blocks of zeros included)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 3, 9000), generator=g, device=cuda)
+    taps = torch.randn((2, 300), generator=g, device=cuda)
+    full = MF.matched_filter_ols(x, taps)
+    y = MF.matched_filter_ols(x, taps, out_len=out_len)
+    n = min(out_len, full.shape[-1])
+    assert y.shape[-1] == out_len and torch.equal(y[..., :n], full[..., :n])
+    assert bool((y[..., n:] == 0).all())
 
 
 @pytest.mark.gpu
