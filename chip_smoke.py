@@ -41,7 +41,16 @@ checkout, then, for each ported path:
   cost between 128 and 1152 steps) beside the 133.3 us a 30.72 Msps stream
   allows; the headline stream in 16 fused steps against one-shot A + B
   (tables and final state), and each primed kernel against its plain
-  version at that step's shape.
+  version at that step's shape;
+* families and the integer oracle (phase 16): the parity simulations of
+  the families without a TPU kernel and of Minn-RTL (sc, minn, minn_rtl,
+  park, zc_freq, combined_sc_minn) on the card against the reference's
+  recorded values and the CPU run's integers; kernel A's corr/energy mode
+  on int16 codes against the C++ integer model's traces (exact), kernel B
+  on the C++ model's own traces against its events, A + B against its
+  frame starts (within 16 samples), the C++ model built with g++
+  (`ofdm_sync_tpu_torch/native.py`); each family's detect timed on one
+  2^24 x 2 stream.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
@@ -55,6 +64,7 @@ CUDA; there is no CPU path.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -97,7 +107,9 @@ from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
     zc_cfar_planar,
     zc_iq_planar,
 )
+from ofdm_sync_tpu_torch.models import detectors as D  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
+from ofdm_sync_tpu_torch.native import minn_rtl_detect_native  # noqa: E402
 from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     GateEvents,
@@ -105,17 +117,34 @@ from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     extract_gate_events_capture,
     extract_gate_events_carried,
 )
+from ofdm_sync_tpu_torch.ops import waveforms as WV  # noqa: E402
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
-from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
+from ofdm_sync_tpu_torch.ops.windows import cumsum, running_sum_stream  # noqa: E402
 from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams  # noqa: E402
-from ofdm_sync_tpu_torch.pipelines import zc, zc_v2  # noqa: E402
+from ofdm_sync_tpu_torch.pipelines import (  # noqa: E402
+    combined_sc_minn,
+    minn,
+    minn_rtl,
+    park,
+    sc,
+    zc,
+    zc_freq,
+    zc_v2,
+)
 from ofdm_sync_tpu_torch.pipelines.aa import run_grid_test_fused  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.common import build_setup  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import (  # noqa: E402
     run_fused_rx,
     run_fused_rx_minn_rtl,
 )
-from ofdm_sync_tpu_torch.testing import aa_stimulus, assert_tables_equal  # noqa: E402
+from ofdm_sync_tpu_torch.testing import (  # noqa: E402
+    aa_stimulus,
+    assert_tables_equal,
+    event_tuples,
+    native_events,
+    rtl_channel_leading,
+    rtl_stimulus,
+)
 
 KW = dict(smooth_shift=3, threshold_value=int(0.10 * (1 << 15)), threshold_frac_bits=15)
 HYST = 2
@@ -1910,6 +1939,252 @@ def phase_latency(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the families without a TPU kernel, and the C++ integer oracle
+# ---------------------------------------------------------------------------
+
+FAMILY_PIPELINES = {"sc": sc, "minn": minn, "minn_rtl": minn_rtl, "park": park,
+                    "zc_freq": zc_freq, "combined_sc_minn": combined_sc_minn}
+#: tests/test_pipeline_parity.py:20-156, the reference's printed results
+#: (seed 0); a float is (value, tolerance), evm_pct is 100 x evm_rms
+FAMILY_REFERENCE = {
+    ("sc", "cir1"): dict(plateau_end=2063, coarse_start=2047, timing_error=540,
+                         cfo_est_hz=(933.82, 0.05), evm_pct=(73.12, 0.15)),
+    ("sc", None): dict(plateau_end=1861, coarse_start=1845, cfo_est_hz=(1027.74, 0.05),
+                       evm_pct=(32.96, 0.15)),
+    ("minn", "cir1"): dict(peak=2065, timing_error=116, cfo_est_hz=(1111.81, 0.05),
+                           evm_pct=(96.45, 0.2)),
+    ("minn", None): dict(peak=1856, timing_error=7, cfo_est_hz=(833.24, 0.05)),
+    ("minn_rtl", "cir1"): dict(events=[(4593, 4593), (19951, 19951)],
+                               per_event_errors=[84, 82], cfo_est_hz=(1069.26, 0.05)),
+    ("minn_rtl", None): dict(events=[(4408, 4408), (19768, 19768)],
+                             per_event_errors=[-1, -1], cfo_est_hz=(967.90, 0.05)),
+    ("park", "cir1"): dict(det_center=8619, det_symbol_start=7595,  # the reference's mis-lock
+                           cfo_est_hz=(1883.81, 0.05)),
+    ("park", None): dict(det_center=2616, det_symbol_start=1592, timing_error=-1,
+                         cfo_est_hz=(980.18, 0.05), evm_pct=(30.96, 0.15)),
+    ("zc_freq", "cir1"): dict(detected_cp_start=1501, cfo_est_hz=(77.71, 0.1),
+                              evm_pct=(70.47, 0.2)),
+    ("zc_freq", None): {},
+    ("combined_sc_minn", "cir1"): dict(peak=2064, timing_error=115,
+                                       cfo_est_hz=(1082.82, 0.05), evm_pct=(66.73, 0.15)),
+    ("combined_sc_minn", None): {},
+}
+#: the oracle's stimulus (tests/test_native_rtl.py:_stimulus) at two Q, and
+#: one long stream whose preambles straddle kernel A's span seams (spans
+#: of 16 tiles of 1024 samples at batch 1 and this length)
+ORACLE_Q = (64, 512)
+ORACLE_LONG = dict(L=1 << 20, Q=512, seam=16 * 1024)
+RTL_TOL = 16  # the reference's RTL frame-start tolerance (ref/test_minn_preamble_detector.py)
+#: phase 16's timings: one 0.55 s capture at 30.72 Msps, 2 branches
+#: complex64 (256 MiB); the ZC FFT form at 2^20 samples in chunks of
+#: ZC_FFT_CHUNK offsets (its 2^20 x 2 x 2048-point FFTs take 34 GB as one)
+FAMILY_L = 1 << 24
+ZC_FFT_L, ZC_FFT_CHUNK = 1 << 20, 8192
+
+
+def check_recorded(r: dict, ref: dict, what: str) -> None:
+    for key, want in ref.items():
+        got = 100 * r["evm_rms"] if key == "evm_pct" else r[key]
+        ok = abs(got - want[0]) < want[1] if isinstance(want, tuple) else got == want
+        if not ok:
+            raise AssertionError(f"{what}: {key} = {got}, the reference recorded {want}")
+
+
+def integer_outputs(r: dict, out: str) -> tuple:
+    """A run's integer results (the int and list fields of its dict) and
+    its printed timing block (indices, events, gate segments)."""
+    lines = out.splitlines()
+    at = next(i for i, line in enumerate(lines) if line.startswith("Timing Detection"))
+    block = []
+    for line in lines[at:]:
+        if not line.strip():
+            break
+        block.append(line)
+    ints = {k: v for k, v in r.items() if isinstance(v, (int, list)) and not isinstance(v, bool)}
+    return ints, block
+
+
+def run_printed(fn, *args, **kw):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = fn(*args, **kw)
+    return r, buf.getvalue()
+
+
+def family_simulations(dev) -> dict:
+    """(a): every simulation of the slice on the card against the recorded
+    values and against the CPU run's integers; the Minn-RTL sweeps' integers
+    against the CPU's."""
+    res = {}
+    for (name, channel), ref in FAMILY_REFERENCE.items():
+        mod = FAMILY_PIPELINES[name]
+        what = f"{name} {channel or 'awgn'}"
+        card_r, card_out = run_printed(mod.run_simulation, channel, device=dev)
+        cpu_r, cpu_out = run_printed(mod.run_simulation, channel, device="cpu")
+        check_recorded(card_r, ref, what + " (card)")
+        if integer_outputs(card_r, card_out) != integer_outputs(cpu_r, cpu_out):
+            raise AssertionError(f"{what}: card integers {integer_outputs(card_r, card_out)} != "
+                                 f"cpu {integer_outputs(cpu_r, cpu_out)}")
+        res[what] = dict(cfo_est_hz=card_r["cfo_est_hz"], evm_pct=100 * card_r["evm_rms"])
+    seq_card, _ = run_printed(minn_rtl.run_sequence_comparison, None, device=dev)
+    seq_cpu, _ = run_printed(minn_rtl.run_sequence_comparison, None, device="cpu")
+    seq_int = lambda rs: [(r["seq_type"], r["peak_idx"], r["timing_error"]) for r in rs]  # noqa: E731
+    if seq_int(seq_card) != seq_int(seq_cpu):
+        raise AssertionError(f"sequence comparison: card {seq_int(seq_card)} != cpu "
+                             f"{seq_int(seq_cpu)}")
+    q_card = minn_rtl.compare_q_values([128, 256, 512], device=dev)
+    q_cpu = minn_rtl.compare_q_values([128, 256, 512], device="cpu")
+    q_int = lambda qs: {Q: (r["timing_error"], r["preamble_len"]) for Q, r in qs.items()}  # noqa: E731
+    if q_int(q_card) != q_int(q_cpu):
+        raise AssertionError(f"Q comparison: card {q_int(q_card)} != cpu {q_int(q_cpu)}")
+    log(f"  (a) 12 simulations on the card == the reference's recorded values and the CPU's "
+        f"integers; sequence order {[r['seq_type'] for r in seq_card]} and Q timing errors "
+        f"{ {Q: r['timing_error'] for Q, r in q_card.items()} } == cpu")
+    res["sequences"] = seq_int(seq_card)
+    return res
+
+
+def oracle_cases() -> list[tuple]:
+    """(label, Q, planar int16 codes (2, 2, L), event capacity)."""
+    cases = [(f"Q={Q}", Q, rtl_stimulus(np.random.default_rng(0), Q, L=max(4000, 900 + 12 * Q)),
+              16) for Q in ORACLE_Q]
+    L, Q, seam = ORACLE_LONG["L"], ORACLE_LONG["Q"], ORACLE_LONG["seam"]
+    positions = [3 * Q] + [3 * seam * k - 5 * Q // 2 + 97 * (k % 5) for k in range(1, 21)]
+    cases.append((f"1 x {L}", Q, rtl_stimulus(np.random.default_rng(1), Q, L=L,
+                                               positions=positions), 32))
+    return cases
+
+
+def check_oracle(dev, label: str, Q: int, iq: np.ndarray, E: int) -> dict:
+    """(b) kernel A's corr/energy mode on the int16 codes == the C++
+    model's integer traces (rounded once to A's float32 outputs); (c)
+    kernel B on the C++ model's own above / track traces == its events,
+    field by field; (d) A + B on the codes as float32: each event's peak
+    within RTL_TOL of the C++ model's."""
+    det = minn_rtl_detect_native(iq, quarter_len=Q, **KW, hysteresis=HYST, max_events=E,
+                                 return_traces=True)
+    if det.overflow or not det.count:
+        raise AssertionError(f"{label}: the C++ model found {det.total} gates for {E} slots")
+    corr_ref = np.maximum(det.corr_total, 0).astype(np.float32)
+    corr, energy = F.minn_rtl_corr_energy_planar_fused(rtl_channel_leading(iq, dev),
+                                                       quarter_len=Q)
+    for what, got, want in (("corr_positive", corr, corr_ref),
+                            ("energy_total", energy, det.energy_total.astype(np.float32))):
+        got = got[0].cpu().numpy()
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise AssertionError(f"{label}: kernel A's {what} != the C++ trace at {bad[:5]}: "
+                                 f"{got[bad[:5]]} vs {want[bad[:5]]}")
+    table = F.gate_events(torch.as_tensor(det.above.astype(bool), device=dev)[None],
+                          torch.as_tensor(corr_ref, device=dev)[None], hysteresis=HYST,
+                          max_events=E, tie="last", emit_unclosed=False)
+    want = [e[:3] + (float(np.float32(e[3])),) + e[4:] for e in native_events(det)]
+    if event_tuples(table) != want:
+        raise AssertionError(f"{label}: kernel B on the C++ traces {event_tuples(table)} != "
+                             f"the C++ events {want}")
+    fused = F.minn_rtl_detect_fused(rtl_channel_leading(iq, dev, torch.float32), quarter_len=Q,
+                                    **KW, hysteresis=HYST, max_events=E)
+    peaks = [e[2] for e in event_tuples(fused)]
+    native_peaks = [int(p) for p in det.peak_idx]
+    if len(peaks) != len(native_peaks) or any(
+            abs(a - b) > RTL_TOL for a, b in zip(peaks, native_peaks)):
+        raise AssertionError(f"{label}: A + B peaks {peaks} vs the C++ model's {native_peaks}")
+    return dict(events=det.count,
+                max_peak_diff=max(abs(a - b) for a, b in zip(peaks, native_peaks)))
+
+
+def family_stimulus(dev, build, pos: int, seed: int) -> torch.Tensor:
+    """(2, FAMILY_L) complex64 on the card: unit-power complex Gaussian
+    samples (the statistics of OFDM data), one family's unit-power preamble
+    in place of samples [pos, pos + len) on both branches, and noise 20 dB
+    below, all from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.complex(*torch.randn((2, 2, FAMILY_L), generator=g, device=dev).mul_(0.5 ** 0.5))
+    pre = torch.as_tensor(build(), device=dev).to(torch.complex64)
+    x[:, pos: pos + pre.numel()] = pre
+    return x + torch.complex(*torch.randn((2, 2, FAMILY_L), generator=g, device=dev).mul_(0.07))
+
+
+def family_timings(dev, card: str) -> dict:
+    """(e): each family's detect on one 2^24 x 2 stream holding its
+    preamble, the result checked against the preamble's position, then
+    timed; the ZC FFT form on the first 2^20 samples."""
+    sys_, cp = SYS_30M72, SYS_30M72.cp_len
+    pos, zpos = FAMILY_L // 2 + 12345, ZC_FFT_L // 2 + 4321
+    rng = lambda: np.random.default_rng(0)  # noqa: E731
+    sc_pre = lambda: WV.build_sc_preamble(rng(), sys_)  # noqa: E731
+    minn_pre = lambda: WV.build_minn_preamble(rng(), sys_)  # noqa: E731
+    park_pre = lambda: WV.build_park_preamble(rng(), sys_)  # noqa: E731
+    pss = lambda: WV.build_pss_symbol(sys_, include_cp=True)  # noqa: E731
+    # name, detector, stimulus, samples, (output key, expected, tolerance)
+    cases = [
+        ("sc", D.SCDetector(), sc_pre, FAMILY_L, ("plateau_end", pos + cp, cp // 2)),
+        ("minn", D.MinnDetector(), minn_pre, FAMILY_L, ("peak", pos + cp, 64)),
+        ("combined_sc_minn", D.CombinedSCMinnDetector(), minn_pre, FAMILY_L,
+         ("peak", pos + cp, 64)),
+        ("park", D.ParkDetector(), park_pre, FAMILY_L,
+         ("det_symbol_start", pos + cp // 2, 16)),
+        ("zc_freq_sliding", D.ZCFreqDetector(form="sliding"), pss, FAMILY_L,
+         ("detected_cp_start", zpos, 16)),
+        ("zc_freq_fft", D.ZCFreqDetector(form="fft", chunk=ZC_FFT_CHUNK), pss, ZC_FFT_L,
+         ("detected_cp_start", zpos, 16)),
+    ]
+    out = {}
+    # the windowed sums' scan: torch.cumsum along the long last axis of a
+    # 2-row stream, against the port's two-level `ops.windows.cumsum`
+    g = torch.Generator(device=dev).manual_seed(16)
+    for dt in (torch.float64, torch.complex128):
+        v = torch.randn((2, FAMILY_L), generator=g, dtype=dt, device=dev)
+        err = float((cumsum(v) - torch.cumsum(v, dim=-1)).abs().max())
+        r = dict(torch_ms=cuda_ms(lambda: torch.cumsum(v, dim=-1), reps=3),
+                 two_level_ms=cuda_ms(lambda: cumsum(v), reps=3), max_abs_diff=err)
+        out[f"cumsum {str(dt).split('.')[-1]}"] = r
+        log(f"  (e) cumsum of 2 x {FAMILY_L} {dt}: torch.cumsum {r['torch_ms']:.3f} ms, "
+            f"two-level {r['two_level_ms']:.3f} ms (max |diff| {err:.3g}); card {card}")
+        del v
+    for seed, (name, det, build, n, (key, want, tol)) in enumerate(cases):
+        x = family_stimulus(dev, build, zpos if name.startswith("zc") else pos, seed)[:, :n]
+        got = det.detect(x)[key]
+        if abs(got - want) > tol:
+            raise AssertionError(f"{name} at 2 x {n}: {key} {got}, the preamble puts it at {want}")
+        run = lambda: det.detect(x)  # noqa: E731
+        bound_ms = bound(x.numel() * 8, 0)[0]
+        r = dict(samples=n, ms=cuda_ms(run, reps=3), kernel_ms=kernel_ms(run, reps=3),
+                 bound_ms=bound_ms, bound_by="bytes", found=(key, got))
+        r["samples_per_s"] = n / (r["ms"] * 1e-3)
+        out[name] = r
+        log(f"  (e) {name} detect, 2 x {n} complex64: {r['ms']:.3f} ms "
+            f"({r['samples_per_s'] / 1e9:.3f} G samples/s), profiler {r['kernel_ms']} ms, "
+            f"bytes bound {bound_ms:.4f} ms; {key} {got}; card {card}")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev, card: str) -> dict:
+    log("== phase 16: the families without a TPU kernel (sc, minn, minn_rtl, park, zc_freq, "
+        "combined_sc_minn) and the C++ integer oracle vs kernels A and B")
+    res = {"simulations": family_simulations(dev)}
+    cases = oracle_cases()
+    reset_launch_counts()
+    oracle = {label: check_oracle(dev, label, Q, iq, E) for label, Q, iq, E in cases}
+    torch.cuda.synchronize()
+    modes = mode_launch_counts()
+    counts = launch_counts()
+    for need in ("minn_rtl_metric/corr_energy", "minn_rtl_metric/corr_above"):
+        if modes.get(need, 0) < 1:
+            raise AssertionError(f"{need} was not launched by the oracle checks: {modes}")
+    if counts["gate_events"] < 1:
+        raise AssertionError(f"kernel B was not launched by the oracle checks: {counts}")
+    log(f"  (b)-(d) kernel A's int16 corr/energy == the C++ traces, kernel B on the C++ traces "
+        f"== the C++ events, A + B peaks within {RTL_TOL} of the C++ model's: {oracle}; "
+        f"launches {modes}")
+    res.update(oracle=oracle, modes=modes, gate_events=counts["gate_events"],
+               timings=family_timings(dev, card))
+    return res
+
+
 def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
     """Kernel E's function as one PyTorch call, `conv1d` (cuDNN, TF32 off):
     the complex full convolution of each plane pair with the taps as a
@@ -2007,19 +2282,21 @@ def main() -> int:
     sk = phase_stream_kernels(dev, card)
     streams = phase_streams(dev, card)
     lat = phase_latency(dev, card)
+    fam = phase_families(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    for name in counts}
     zc_launches = zc_chain["counts"]
-    modes = streams["modes"]
+    # the stream phases' mode counts, and phase 16's launches of A and B
+    modes = collections.Counter(streams["modes"]) + collections.Counter(fam["modes"])
     B, L = HEADLINE["batch"], HEADLINE["L"]
     n, Bm = ZC_HEADLINE["n"], ZC_HEADLINE["mf_batch"]
     src = "ofdm_sync_tpu_torch/kernels/csrc/"
     # name, source, replaces, launches, max_abs_err, ms, plain_ms, (bytes, flops), library
     rows = [
         ("minn_rtl_metric", "minn_rtl_metric.cu", "ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
-         counts["minn_rtl_metric"], k["corr_err"], h32["a_ms"], h32["plain_a_ms"],
-         a_work(B, L, 4, 4, 5), None),
+         counts["minn_rtl_metric"] + fam["modes"].get("minn_rtl_metric/corr_above", 0),
+         k["corr_err"], h32["a_ms"], h32["plain_a_ms"], a_work(B, L, 4, 4, 5), None),
         ("minn_rtl_metric[full]", "minn_rtl_metric.cu", "ofdm_sync_tpu/kernels/pallas_minn.py:240",
          modes.get("minn_rtl_metric/full", 0), sk["errs"]["full"], sk["res"]["full_f32_ms"],
          sk["res"]["plain_full_ms"], a_work(B, L, 4, 4, 13), None),
@@ -2032,7 +2309,7 @@ def main() -> int:
          max(sk["errs"]["primed_a"], lat["a_primed_err"]), lat["a_primed_ms"],
          lat["plain_a_primed_ms"], lat["a_primed_work"], None),
         ("gate_events", "gate_events.cu", "ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
-         counts["gate_events"], 0.0, h32["b_ms"], h32["plain_b_ms"],
+         counts["gate_events"] + fam["gate_events"], 0.0, h32["b_ms"], h32["plain_b_ms"],
          b_work(torch.empty((B, L), dtype=torch.bool, device="meta"), h32["b_gated"]), None),
         ("gate_events[primed]", "gate_events.cu",
          "ofdm_sync_tpu/kernels/pallas_minn.py:403, ofdm_sync_tpu/kernels/pallas_aa.py:221, "
@@ -2084,6 +2361,7 @@ def main() -> int:
     print(json.dumps({"e_sass": e_sass, "headline": head, "long": long, "aa_headline": aa_head,
                       "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head,
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
+                      "families": {k: fam[k] for k in ("simulations", "oracle", "timings")},
                       "other_bounds_ms": other_bounds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

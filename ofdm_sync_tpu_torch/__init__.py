@@ -16,7 +16,12 @@ Ported so far:
   CFAR paths of `ZCStreamingDetector`;
 * the chunked streaming receivers (`kernels.streaming_chunked`, exported
   here): Minn-RTL plain and fused, [A][A] fused and ZC CFAR fused, each
-  carrying its state between chunks.
+  carrying its state between chunks;
+* the reference-parity simulations of every family: the Minn-RTL pipeline
+  with its sweeps, and the families without a TPU kernel (D1 Schmidl-Cox,
+  D2 Minn, D4 Park, D6 ZC-frequency, D8 combined S&C + Minn, plain
+  PyTorch), and the ctypes binding of the C++ integer RTL models
+  (`native`), the oracle the kernels are held to.
 
 Plain tensor code is PyTorch; the detection hot paths are the five
 hand-written CUDA kernels for the H100 in `kernels/csrc/`.  On CPU tensors

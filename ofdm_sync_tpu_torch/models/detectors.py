@@ -1,8 +1,18 @@
-"""Detector families of the port (port of `ofdm_sync_tpu.models.detectors`):
-the flagship Minn-RTL detector D3 (reference minn_rtl.py + ref/*.sv), the
-Zadoff-Chu time-domain matched filter D5 (reference zc.py), the ZC
-streaming CFAR detector D7 (reference zc_v2.py) and the [A][A] detector D9
-(reference sync_aa.py:421-571).
+"""Detector families of the port (port of `ofdm_sync_tpu.models.detectors`),
+one class per reference detector:
+
+  SCDetector              D1  reference sc.py
+  MinnDetector            D2  reference minn.py
+  MinnRTLDetector         D3  reference minn_rtl.py + ref/*.sv
+  ParkDetector            D4  reference park.py
+  ZCTimeDetector          D5  reference zc.py
+  ZCFreqDetector          D6  reference zc_freq.py
+  ZCStreamingDetector     D7  reference zc_v2.py
+  CombinedSCMinnDetector  D8  reference combined_sc_min.py
+  AADetector              D9  reference sync_aa.py:421-571
+
+D1, D2, D4, D6 and D8 have no TPU kernel in the JAX package and are plain
+PyTorch here too; their `detect` returns the JAX detector's dict keys.
 
 All are `nn.Module`s without parameters: their configuration is the system
 and detector dataclasses.  They take complex tensors on any device;
@@ -27,10 +37,17 @@ from ofdm_sync_tpu_torch.models.base import DetectionEvent, DetectionResult, eve
 from ofdm_sync_tpu_torch.ops import metrics as M
 from ofdm_sync_tpu_torch.ops.detect import extract_gate_events, gate_open_mask
 from ofdm_sync_tpu_torch.ops.extract import extract_frames
-from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol
+from ofdm_sync_tpu_torch.ops.waveforms import (
+    build_pss_symbol,
+    centered_subcarrier_indices,
+    generate_zadoff_chu,
+)
+from ofdm_sync_tpu_torch.ops.windows import trailing_average
 from ofdm_sync_tpu_torch.params import (
     AADetectorParams,
+    MinnDetectorParams,
     MinnRTLParams,
+    SCDetectorParams,
     SYS_30M72,
     SYS_AA_10M,
     SystemParams,
@@ -49,6 +66,65 @@ def planar_rows(rx: torch.Tensor) -> torch.Tensor:
     [b0_re, b0_im, b1_re, b1_im, ...], on the same device."""
     x = _as_branches(rx).to(torch.complex64)
     return torch.view_as_real(x).permute(0, 2, 1).reshape(2 * x.shape[0], x.shape[-1])
+
+
+def _c64(rx: torch.Tensor) -> torch.Tensor:
+    return _as_branches(rx).to(torch.complex64)
+
+
+class SCDetector(nn.Module):
+    """D1: Schmidl & Cox, the plateau end of the S&C metric and the coarse
+    start ``plateau_end - sc_delta`` (reference sc.py)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72,
+                 params: SCDetectorParams = SCDetectorParams()):
+        super().__init__()
+        self.sys = sys
+        self.params = params
+
+    def metric(self, rx: torch.Tensor):
+        return M.sc_metric(_c64(rx), self.sys.n_fft)
+
+    forward = metric
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        Mm, P, R = M.sc_metric(_c64(rx), self.sys.n_fft)
+        p = self.params
+        plateau_end = M.find_plateau_end(
+            Mm, self.sys.cp_len, lookahead=self.sys.cp_len // 4, smooth_win=p.smooth_win,
+            plateau_frac=p.plateau_frac, run_threshold=p.run_threshold)
+        return {"M": Mm, "P": P, "R": R, "plateau_end": plateau_end,
+                "coarse_start": max(plateau_end - p.sc_delta, 0)}
+
+
+class MinnDetector(nn.Module):
+    """D2: standard Minn [A A -A -A], the peak of the smoothed metric within
+    its largest gate segment (reference minn.py).  ``symbol_len`` overrides
+    the symbol length for block-length sweeps (reference minn.py:656-751)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72,
+                 params: MinnDetectorParams = MinnDetectorParams(),
+                 symbol_len: int | None = None):
+        super().__init__()
+        self.sys = sys
+        self.params = params
+        self.symbol_len = symbol_len
+
+    @property
+    def n(self) -> int:
+        return self.symbol_len or self.sys.n_fft
+
+    def metric(self, rx: torch.Tensor):
+        return M.minn_metric(_c64(rx), self.n)
+
+    forward = metric
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        Mm, P, R = M.minn_metric(_c64(rx), self.n)
+        peak, gate, Ms = M.find_minn_peak_standard(Mm, self.params.smooth_win,
+                                                   self.params.gate_threshold)
+        return {"M": Mm, "P": P, "R": R, "peak": int(peak),
+                "gate_mask": gate.cpu().numpy(), "M_smooth": Ms}
 
 
 class MinnRTLDetector(nn.Module):
@@ -113,6 +189,33 @@ class MinnRTLDetector(nn.Module):
         return DetectionResult(events=events, gate_mask=None), frames, starts, valid
 
 
+class ParkDetector(nn.Module):
+    """D4: Park [A B A* B*], the argmax of the centered-correlation metric;
+    the symbol starts half a symbol before the center, its CP half the
+    system's before that (reference park.py)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72):
+        super().__init__()
+        self.sys = sys
+
+    @property
+    def cp_len(self) -> int:
+        return self.sys.cp_len // 2  # reference park.py:29
+
+    def metric(self, rx: torch.Tensor):
+        return M.park_metric(_c64(rx), self.sys.n_fft)
+
+    forward = metric
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        ds, Mm, P, E = M.park_metric(_c64(rx), self.sys.n_fft)
+        det_center = int(ds[torch.argmax(Mm)])
+        det_symbol_start = max(det_center - self.sys.n_fft // 2, 0)
+        return {"ds": ds, "M": Mm, "P": P, "E": E, "det_center": det_center,
+                "det_symbol_start": det_symbol_start,
+                "det_cp_start": max(det_symbol_start - self.cp_len, 0)}
+
+
 class ZCTimeDetector(nn.Module):
     """D5: the normalized matched filter against the PSS symbol, peak =
     argmax of |corr| (reference zc.py:106-130)."""
@@ -135,6 +238,42 @@ class ZCTimeDetector(nn.Module):
             "peak_index": peak,
             "detected_start": max(peak - self.sys.n_fft + 1, 0),
         }
+
+
+class ZCFreqDetector(nn.Module):
+    """D6: the frequency-domain PSS search, the argmax of the template-bin
+    metric over CP-start offsets (reference zc_freq.py).  ``form``: "fft",
+    the reference's per-offset FFT in batches of ``chunk`` offsets, or
+    "sliding", one modulate-and-window-sum pass per template bin (the same
+    metric up to float32 rounding)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72, params: ZCParams = ZCParams(),
+                 chunk: int = 512, form: str = "fft"):
+        super().__init__()
+        if form not in ("fft", "sliding"):
+            raise ValueError(f"form must be 'fft' or 'sliding', got {form!r}")
+        self.sys = sys
+        self.params = params
+        self.chunk = chunk
+        self.form = form
+
+    def template(self) -> tuple[np.ndarray, np.ndarray]:
+        return (centered_subcarrier_indices(self.params.pss_length),
+                generate_zadoff_chu(self.params.pss_root, self.params.pss_length))
+
+    def metric(self, rx: torch.Tensor) -> torch.Tensor:
+        bins, tmpl = self.template()
+        if self.form == "sliding":
+            return M.zc_freq_metric_sliding(_c64(rx), tmpl, bins, self.sys.n_fft,
+                                            self.sys.cp_len)
+        return M.zc_freq_metric(_c64(rx), tmpl, bins, self.sys.n_fft, self.sys.cp_len,
+                                chunk=self.chunk)
+
+    forward = metric
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        metric = self.metric(rx)
+        return {"metric": metric, "detected_cp_start": int(torch.argmax(metric))}
 
 
 class ZCStreamingDetector(nn.Module):
@@ -236,6 +375,43 @@ class ZCStreamingDetector(nn.Module):
     def strongest(result: DetectionResult) -> DetectionEvent | None:
         """The strongest event, not the first (reference zc_v2.py:567-576)."""
         return result.best_by(lambda e: e.peak_value)
+
+
+class CombinedSCMinnDetector(nn.Module):
+    """D8: an S&C gate at ``sc_gate_threshold`` x the peak of the
+    both-halves S&C metric, seeded at its strongest sample where empty, and
+    the peak of the trailing-averaged Minn metric within the gate's first
+    segment, as a streaming detector would take it (reference
+    combined_sc_min.py:183-259, 347-351)."""
+
+    def __init__(self, sys: SystemParams = SYS_30M72, smooth_win: int = 16,
+                 sc_gate_threshold: float = 0.6):
+        super().__init__()
+        self.sys = sys
+        self.smooth_win = smooth_win
+        self.sc_gate_threshold = sc_gate_threshold
+
+    def detect(self, rx: torch.Tensor) -> dict:
+        x = _c64(rx)
+        Mm, _, _ = M.minn_metric(x, self.sys.n_fft)
+        M_sc, _, _ = M.sc_generic_metric(x, self.sys.n_fft)
+        max_sc = M_sc.max()
+        sc_norm = torch.where(max_sc > 0, M_sc / max_sc, M_sc)
+        gate = sc_norm >= self.sc_gate_threshold
+        if not bool(gate.any()):
+            gate = torch.zeros_like(gate)
+            gate[torch.argmax(M_sc)] = True
+        Ms = trailing_average(Mm.clamp_min(0.0), self.smooth_win)
+        # the first gate segment: [first True, first False after it)
+        n = gate.shape[-1]
+        idx = torch.arange(n, device=x.device)
+        first_start = torch.argmax(gate.to(torch.uint8))
+        after_off = (idx >= first_start) & ~gate
+        first_end = torch.where(after_off.any(), torch.argmax(after_off.to(torch.uint8)), n)
+        in_first = gate & (idx >= first_start) & (idx < first_end)
+        peak = int(torch.argmax(torch.where(in_first, Ms, -math.inf)))
+        return {"M_minn": Mm, "M_sc": M_sc, "sc_norm": sc_norm,
+                "sc_gate_mask": gate.cpu().numpy(), "M_smooth": Ms, "peak": peak}
 
 
 class AADetector(nn.Module):

@@ -32,6 +32,26 @@ def load_measured_cir(name: str) -> np.ndarray:
         return z[name]
 
 
+def parse_cir_csv(path: Path) -> np.ndarray:
+    """Parse a raw CIR CSV (columns: delay, then (real, imag) per RX
+    channel) into an (n_rx, taps) complex array: NaN taps dropped per
+    channel, each zero-padded to the longest (reference channel.py:15-48)."""
+    data = np.genfromtxt(path, delimiter=",", skip_header=1)
+    if data.ndim == 1:
+        data = data[np.newaxis, :]
+    cirs = []
+    for chan in range((data.shape[1] - 1) // 2):
+        real, imag = data[:, 1 + 2 * chan], data[:, 2 + 2 * chan]
+        mask = np.isfinite(real) & np.isfinite(imag)
+        cirs.append((real[mask] + 1j * imag[mask]).astype(np.complex128))
+    if not cirs:
+        raise ValueError(f"'{path}' contains no CIR taps")
+    out = np.zeros((len(cirs), max(c.shape[0] for c in cirs)), dtype=np.complex128)
+    for i, c in enumerate(cirs):
+        out[i, : c.shape[0]] = c
+    return out
+
+
 def compute_channel_peak_offset(cir) -> int:
     """Strongest-path index of an (n_rx, taps) CIR (reference core.py:113-120)."""
     if cir is None:
@@ -232,3 +252,17 @@ def compute_clipping_stats(samples: np.ndarray, full_scale: float, bits: int = 1
         "signal_rms": signal_rms,
         "full_scale": full_scale,
     }
+
+
+def quantize_int(samples: np.ndarray, width: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """Auto-scaled integer quantization of the RTL testbench (reference
+    ref/test_minn_preamble_detector.py:150-161), on the host: the largest
+    magnitude maps to 2^(width-1) - 2.  Returns (int32 I, int32 Q, scale)."""
+    min_val = -(1 << (width - 1))
+    max_val = (1 << (width - 1)) - 1
+    max_mag = np.max(np.abs(samples))
+    scale = 1.0 if max_mag == 0 else (max_val - 1) / max_mag
+    scaled = samples * scale
+    re = np.clip(np.round(scaled.real), min_val, max_val).astype(np.int32)
+    im = np.clip(np.round(scaled.imag), min_val, max_val).astype(np.int32)
+    return re, im, scale

@@ -8,6 +8,9 @@ above of the cluster + h, peak = argmax of the tracked value over
 [gate_start, close].  Clusters come from a running maximum of above
 indices and per-slot reductions over a static event capacity.
 
+`largest_true_run`, `earliest_long_run_end` and `mask_segments` are the
+run-segmentation helpers of the plateau and gate-mask pickers.
+
 `extract_gate_events` is the plain PyTorch version of the CUDA gate/event
 kernel (`kernels/csrc/gate_events.cu`), and `extract_gate_events_capture`
 that of its peak-capture mode; both work on the last axis and broadcast
@@ -232,3 +235,55 @@ def gate_open_mask(above: torch.Tensor, hysteresis: int,
     idx = torch.arange(n, dtype=torch.int64, device=above.device)
     la = _last_above(above.to(torch.bool) & (idx >= valid_from), idx)
     return (la >= 0) & (idx - la <= h)
+
+
+# ---------------------------------------------------------------------------
+# Run segmentation (plateau / gate-mask post-processing)
+# ---------------------------------------------------------------------------
+
+def _runs(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The contiguous True runs of a 1-D bool mask, in order: (first index,
+    last index) of each, from its rising and falling edges."""
+    d = torch.diff(mask.to(torch.int8), prepend=mask.new_zeros(1, dtype=torch.int8),
+                   append=mask.new_zeros(1, dtype=torch.int8))
+    return torch.nonzero(d == 1).flatten(), torch.nonzero(d == -1).flatten() - 1
+
+
+def largest_true_run(mask: torch.Tensor) -> torch.Tensor:
+    """Keep only the longest contiguous True run of a 1-D mask (ties: the
+    earliest), as the standard-Minn gate cleanup does (reference
+    minn.py:157-181)."""
+    starts, ends = _runs(mask)
+    if starts.numel() == 0:
+        return mask
+    best = torch.argmax(ends - starts)  # argmax: the first maximum
+    idx = torch.arange(mask.shape[-1], device=mask.device)
+    return (idx >= starts[best]) & (idx <= ends[best])
+
+
+def earliest_long_run_end(mask: torch.Tensor, min_run: int) -> torch.Tensor:
+    """Last index of the earliest True run of a 1-D mask that is at least
+    ``min_run`` long; -1 if none (the segment search of the Schmidl-Cox
+    plateau picker, reference sc.py:117-133).  A 0-d int64 tensor."""
+    starts, ends = _runs(mask)
+    ok = ends - starts + 1 >= min_run
+    if not bool(ok.any()):
+        return torch.tensor(-1, device=mask.device)
+    return ends[torch.argmax(ok.to(torch.uint8))]
+
+
+def mask_segments(mask) -> list[tuple[int, int]]:
+    """Host helper: the contiguous [start, end) True segments of a boolean
+    mask (a tensor on any device or an array; reference minn.py:307-319)."""
+    m = (mask.detach().cpu().numpy() if isinstance(mask, torch.Tensor)
+         else np.asarray(mask)).astype(bool)
+    if m.size == 0:
+        return []
+    d = np.diff(m.astype(np.int8))
+    starts = list(np.flatnonzero(d == 1) + 1)
+    ends = list(np.flatnonzero(d == -1) + 1)
+    if m[0]:
+        starts = [0] + starts
+    if m[-1]:
+        ends = ends + [m.size]
+    return [(int(s), int(e)) for s, e in zip(starts, ends)]

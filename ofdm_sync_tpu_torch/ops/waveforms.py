@@ -1,12 +1,16 @@
-"""Preamble / OFDM symbol construction used by the Minn-RTL, [A][A] and
-Zadoff-Chu chains (port of the NumPy builders of `ofdm_sync_tpu.ops.waveforms`).
+"""Preamble / OFDM symbol construction for every detector family (port
+of `ofdm_sync_tpu.ops.waveforms`).
 
 Stimulus is built on the host in NumPy float64 with the reference's exact
 RNG call order, so a seed gives the same frames as the JAX package and the
-reference scripts.  `ofdm_fft_used` runs on the tensor's device.
+reference scripts.  `ofdm_fft_used` runs on the tensor's device, and
+`batched_qpsk_frames` generates frames on a device from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -50,6 +54,10 @@ def add_cyclic_prefix(symbol: np.ndarray, cp_len: int) -> np.ndarray:
     return np.concatenate((symbol[-cp_len:], symbol))
 
 
+def remove_cyclic_prefix(symbol: np.ndarray, cp_len: int) -> np.ndarray:
+    return symbol[cp_len:] if cp_len > 0 else symbol
+
+
 def papr_db(x: np.ndarray) -> float:
     """Peak-to-average power ratio in dB (reference sync_aa.py:230-233)."""
     p = np.abs(x) ** 2
@@ -66,6 +74,15 @@ def _qpsk_values(rng: np.random.Generator, size: int) -> np.ndarray:
     re = (m & 1) * 2 - 1
     im = ((m >> 1) & 1) * 2 - 1
     return ((re + 1j * im) / np.sqrt(2.0)).astype(np.complex128)
+
+
+def build_random_bpsk_symbol(
+    rng: np.random.Generator, sys: SystemParams = SYS_30M72, include_cp: bool = True
+) -> np.ndarray:
+    idx = centered_subcarrier_indices(sys.num_active)
+    bits = rng.choice([-1.0, 1.0], size=idx.shape[0])
+    symbol = spectrum_to_time_domain(allocate_subcarriers(sys.n_fft, idx, bits))
+    return add_cyclic_prefix(symbol, sys.cp_len) if include_cp else symbol
 
 
 def build_random_qpsk_symbol(
@@ -86,6 +103,96 @@ def ofdm_fft_used(symbol_time_no_cp: torch.Tensor, sys: SystemParams = SYS_30M72
     spectrum = torch.fft.fftshift(torch.fft.fft(symbol_time_no_cp, n=sys.n_fft))
     idx = (sys.n_fft // 2 + centered_subcarrier_indices(sys.num_active)) % sys.n_fft
     return spectrum[torch.as_tensor(idx, device=spectrum.device)]
+
+
+# ---------------------------------------------------------------------------
+# Detector preambles
+# ---------------------------------------------------------------------------
+
+def build_sc_preamble(
+    rng: np.random.Generator, sys: SystemParams = SYS_30M72, include_cp: bool = True
+) -> np.ndarray:
+    """Schmidl-Cox [A][A] preamble: BPSK on the even subcarriers
+    (reference sc.py:31-39)."""
+    all_idx = centered_subcarrier_indices(sys.num_active)
+    even_idx = all_idx[(all_idx % 2) == 0]
+    bpsk = rng.choice([-1.0, 1.0], size=even_idx.shape[0])
+    symbol = spectrum_to_time_domain(allocate_subcarriers(sys.n_fft, even_idx, bpsk))
+    return add_cyclic_prefix(symbol, sys.cp_len) if include_cp else symbol
+
+
+def build_minn_preamble(
+    rng: np.random.Generator, sys: SystemParams = SYS_30M72, include_cp: bool = True
+) -> np.ndarray:
+    """Standard Minn [A A -A -A]: BPSK on every 4th subcarrier, the second
+    half sign-flipped, renormalized (reference minn.py:30-56)."""
+    all_idx = centered_subcarrier_indices(sys.num_active)
+    quarter_idx = all_idx[(all_idx % 4) == 0]
+    bpsk = rng.choice([-1.0, 1.0], size=quarter_idx.shape[0])
+    symbol = np.fft.ifft(np.fft.ifftshift(allocate_subcarriers(sys.n_fft, quarter_idx, bpsk)))
+    symbol[sys.n_fft // 2:] = -symbol[sys.n_fft // 2:]
+    power = np.mean(np.abs(symbol) ** 2)
+    if power > 0:
+        symbol = symbol / np.sqrt(power)
+    return add_cyclic_prefix(symbol, sys.cp_len) if include_cp else symbol
+
+
+def build_park_preamble(
+    rng: np.random.Generator, sys: SystemParams = SYS_30M72, include_cp: bool = True
+) -> np.ndarray:
+    """Park preamble [A, B, A*, B*] with B = reversed A, band-limited to the
+    active subcarriers and RMS-rescaled; its CP is half the system's
+    (reference park.py:29-61)."""
+    if sys.n_fft % 4:
+        raise ValueError("N_FFT must be divisible by 4 for Park preamble")
+    quarter = sys.n_fft // 4
+    bits = rng.integers(0, 4, size=quarter)
+    A = np.exp(1j * (np.pi / 2.0) * bits)
+    B = A[::-1]
+    x_ideal = np.concatenate([A, B, np.conj(A), np.conj(B)])
+
+    X = np.fft.fftshift(np.fft.fft(x_ideal, sys.n_fft))
+    mask = np.zeros(sys.n_fft, dtype=float)
+    idx = centered_subcarrier_indices(sys.num_active)
+    mask[(sys.n_fft // 2 + idx) % sys.n_fft] = 1.0
+    x_masked = np.fft.ifft(np.fft.ifftshift(X * mask), sys.n_fft)
+
+    def rms(v):
+        return float(np.sqrt(np.mean(np.abs(v) ** 2)))
+
+    denom = rms(x_masked)
+    if denom > 0:
+        x_masked *= rms(x_ideal) / denom
+    return add_cyclic_prefix(x_masked, sys.cp_len // 2) if include_cp else x_masked
+
+
+def build_hermitian_minn_preamble(
+    sys: SystemParams = SYS_30M72,
+    rng: np.random.Generator | None = None,
+    subcarrier_value: complex | None = None,
+    include_cp: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """[A A -A -A] preamble with Hermitian-symmetric subcarrier values, the
+    golden stimulus of the RTL testbench (reference ref/ofdm.py:146-201).
+    Returns (preamble, subcarrier values)."""
+    all_idx = centered_subcarrier_indices(sys.num_active)
+    quarter_idx = all_idx[(all_idx % 4) == 0]
+    pos_mask = quarter_idx > 0
+    if subcarrier_value is not None:
+        values = np.full(quarter_idx.size, subcarrier_value, dtype=np.complex128)
+        values[~pos_mask] = np.conj(values[pos_mask][::-1])
+    else:
+        rng = np.random.default_rng(0) if rng is None else rng
+        pos_values = rng.choice([-1.0, 1.0], size=pos_mask.sum()).astype(np.complex128)
+        values = np.zeros(quarter_idx.size, dtype=np.complex128)
+        values[pos_mask] = pos_values
+        values[~pos_mask] = np.conj(pos_values[::-1])
+    base = spectrum_to_time_domain(allocate_subcarriers(sys.n_fft, quarter_idx, values))
+    preamble = base.copy()
+    preamble[sys.n_fft // 2:] *= -1.0
+    if include_cp:
+        preamble = add_cyclic_prefix(preamble, sys.cp_len)
+    return preamble, values
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +344,31 @@ def build_aa_qpsk_symbol(
     symbol = symbol * np.sqrt(sys.n_fft)
     symbol = symbol / np.sqrt(np.mean(np.abs(symbol) ** 2))
     return np.concatenate([symbol[-sys.cp_len:], symbol]), qpsk
+
+
+# ---------------------------------------------------------------------------
+# Batched generation on a device
+# ---------------------------------------------------------------------------
+
+def batched_qpsk_frames(
+    generator: torch.Generator, batch: int, sys: SystemParams = SYS_30M72,
+    include_cp: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch`` random full-band QPSK OFDM symbols, generated on the
+    generator's device.  Returns (time symbols (batch, n_fft [+ cp_len]),
+    used values (batch, num_active)), complex64.  The JAX package draws
+    from `jax.random` keys: the two agree in distribution only."""
+    dev = generator.device
+    idx = torch.as_tensor(
+        (sys.n_fft // 2 + centered_subcarrier_indices(sys.num_active)) % sys.n_fft, device=dev)
+    m = torch.randint(0, 4, (batch, sys.num_active), generator=generator, device=dev)
+    vals = torch.complex(((m & 1) * 2 - 1).float(), (((m >> 1) & 1) * 2 - 1).float())
+    vals = vals / math.sqrt(2.0)
+    spectrum = torch.zeros((batch, sys.n_fft), dtype=torch.complex64, device=dev)
+    spectrum[:, idx] = vals
+    td = torch.fft.ifft(torch.fft.ifftshift(spectrum, dim=-1), dim=-1)
+    power = (td.abs() ** 2).mean(dim=-1, keepdim=True)
+    td = td / torch.sqrt(power.clamp_min(1e-30))
+    if include_cp:
+        td = torch.cat([td[:, -sys.cp_len:], td], dim=-1)
+    return td, vals

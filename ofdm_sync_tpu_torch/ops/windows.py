@@ -5,7 +5,8 @@ a windowed sum and static shifts.  Windowed sums are cumulative-sum
 differences.  Here the cumulative sum runs in float64 and the difference is
 cast back to the input dtype: a float32 cumsum over a long stream drifts
 (3.1e-5 on window sums near 96 at 8192 samples, Q = 512), while float64
-keeps every window sum within one rounding of its exact value.
+keeps every window sum within one rounding of its exact value.  A row
+longer than `SCAN_BLOCK` is scanned in two levels (`cumsum`).
 
 All functions work on the LAST axis and broadcast over leading axes.
 """
@@ -21,6 +22,28 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype.is_floating_point:
         return torch.float64
     return torch.int64
+
+
+#: rows longer than this take `cumsum`'s two-level scan
+SCAN_BLOCK = 4096
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum along the last axis in the accumulation dtype
+    (float64, complex128 or int64).  A row longer than `SCAN_BLOCK` is
+    scanned within blocks of `SCAN_BLOCK` samples, then across the block
+    totals: `torch.cumsum` along a long last axis of few rows leaves a
+    card nearly idle (`chip_smoke.py` phase 16 times both; PERF.md).  Exact
+    on integer input, within float64 rounding otherwise."""
+    x = x.to(_acc_dtype(x.dtype))
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return torch.cumsum(x, dim=-1)
+    lead = x.shape[:-1]
+    blocks = torch.nn.functional.pad(x, (0, -n % SCAN_BLOCK)).reshape(
+        *lead, -1, SCAN_BLOCK).cumsum(dim=-1)
+    blocks[..., 1:, :] += blocks[..., :-1, -1].cumsum(dim=-1).unsqueeze(-1)
+    return blocks.reshape(*lead, -1)[..., :n]
 
 
 def shift_right(x: torch.Tensor, delay: int, fill=0) -> torch.Tensor:
@@ -50,7 +73,7 @@ def running_sum_stream(x: torch.Tensor, window: int) -> torch.Tensor:
     ``y[n] = sum_{k=max(0, n-window+1)}^{n} x[k]``, same length as x."""
     if window <= 0:
         raise ValueError("window must be positive")
-    cs = torch.cumsum(x.to(_acc_dtype(x.dtype)), dim=-1)
+    cs = cumsum(x)
     return (cs - shift_right(cs, window)).to(x.dtype)
 
 
@@ -58,10 +81,34 @@ def sliding_sum_valid(x: torch.Tensor, window: int) -> torch.Tensor:
     """``y[d] = sum_{k=d}^{d+window-1} x[k]``; length ``L - window + 1``."""
     if window <= 0:
         raise ValueError("window must be positive")
-    cs = torch.cumsum(x.to(_acc_dtype(x.dtype)), dim=-1)
+    cs = cumsum(x)
     lead = cs[..., window - 1: window]
     rest = cs[..., window:] - cs[..., :-window]
     return torch.cat([lead, rest], dim=-1).to(x.dtype)
+
+
+def trailing_average(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Streaming trailing moving average with partial-window warm-up:
+    ``y[n] = (sum of the last min(n+1, window) samples) / min(n+1, window)``
+    (reference minn.py:115-128, combined_sc_min.py:167-180)."""
+    if window <= 1:
+        return x.to(torch.promote_types(x.dtype, torch.float32))
+    rs = running_sum_stream(x, window)
+    n = torch.arange(x.shape[-1], device=x.device)
+    return rs / n.add(1).clamp_max(window).to(rs.dtype)
+
+
+def frame_signal(x: torch.Tensor, num_frames: int, frame_len: int, hop: int = 1,
+                 offset: int = 0) -> torch.Tensor:
+    """Overlapping frames ``out[..., d, k] = x[..., offset + d*hop + k]``, a
+    view of ``x`` (no copy); the frames must lie inside ``x``."""
+    if num_frames <= 0:
+        return x.new_zeros(x.shape[:-1] + (0, frame_len))
+    frames = x[..., offset:].unfold(-1, frame_len, hop)[..., :num_frames, :]
+    if frames.shape[-2] < num_frames:
+        raise ValueError(f"{num_frames} frames of {frame_len} at hop {hop} from {offset} "
+                         f"run past the end of {x.shape[-1]} samples")
+    return frames
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

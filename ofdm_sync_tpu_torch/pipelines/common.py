@@ -33,6 +33,12 @@ from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams
 from ofdm_sync_tpu_torch.utils import report
 
 
+def refuse_plots(plots_subdir: str | None) -> None:
+    """The simulations' plots are not ported: ``plots_subdir`` must be None."""
+    if plots_subdir is not None:
+        raise NotImplementedError("the plots are not ported; pass plots_subdir=None")
+
+
 @dataclass
 class SimSetup:
     """Stimulus + channel for one run; ``rx`` is a complex64 tensor on the

@@ -31,8 +31,7 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     detection, strongest event -> CFO / LS EQ / EVM; prints the reference's
     report and returns its numbers.  ``plots_subdir`` must be None: plots
     are not ported."""
-    if plots_subdir is not None:
-        raise NotImplementedError("the ZC v2 plots are not ported; pass plots_subdir=None")
+    common.refuse_plots(plots_subdir)
     sys = SYS_30M72
     rng = np.random.default_rng(0)
     params = ZCStreamingParams()

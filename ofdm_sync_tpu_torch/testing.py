@@ -59,3 +59,49 @@ def aa_stimulus(batch: int, n: int, half_len: int, device, *, seed: int = 0,
         for c in range(2 * branches):
             x[c, b, pos: pos + 2 * half_len] += planes[c % 2][: n - pos]
     return x
+
+
+def rtl_stimulus(rng: np.random.Generator, quarter_len: int, *, snr_db: float = 10.0,
+                 L: int = 4000, positions=(900,)) -> np.ndarray:
+    """Planar int16 ADC codes (2 branches, 2, L) for the C++ integer oracle,
+    after tests/test_native_rtl.py:_stimulus: the qpsk_freq 5Q Minn-RTL
+    preamble (built from seed 0) at each of ``positions`` on branch 0 and
+    at 0.8x on branch 1, complex AWGN from ``rng`` at ``snr_db`` below the
+    preamble's power, all quantized to 12 bits (`quantize_int`, the largest
+    magnitude at 2046)."""
+    from ofdm_sync_tpu_torch.ops.channel import quantize_int
+    from ofdm_sync_tpu_torch.ops.waveforms import build_minn_rtl_preamble
+
+    pre = build_minn_rtl_preamble("qpsk_freq", rng=np.random.default_rng(0), Q=quarter_len)
+    sig = np.zeros(L, complex)
+    for pos in positions:
+        sig[pos: pos + pre.size] = pre
+    rx = np.stack([sig, 0.8 * sig])
+    noise_pow = np.mean(np.abs(pre) ** 2) / (10 ** (snr_db / 10))
+    rx = rx + np.sqrt(noise_pow / 2) * (
+        rng.standard_normal(rx.shape) + 1j * rng.standard_normal(rx.shape))
+    re, im, _ = quantize_int(rx, 12)
+    return np.stack([re, im], axis=1).astype(np.int16)
+
+
+def rtl_channel_leading(iq: np.ndarray, device, dtype=torch.int16) -> torch.Tensor:
+    """(branches, 2, L) planar codes -> the kernels' channel-leading
+    (2*branches, batch=1, L) layout, rows [b0_i, b0_q, b1_i, b1_q, ...]."""
+    b, _, L = iq.shape
+    return torch.as_tensor(iq.reshape(2 * b, 1, L), device=device).to(dtype).contiguous()
+
+
+def native_events(det) -> list[tuple]:
+    """The C++ model's events as (gate start, close, peak index, peak value,
+    closed) tuples."""
+    return [(int(det.gate_start[k]), int(det.gate_close[k]), int(det.peak_idx[k]),
+             float(det.peak_value[k]), bool(det.closed[k])) for k in range(det.count)]
+
+
+def event_tuples(table) -> list[tuple]:
+    """A single-stream `GateEvents` table's valid slots as (gate start,
+    close, peak index, peak value, closed) tuples."""
+    a = {k: v.reshape(-1) for k, v in table_arrays(table).items() if k not in ("count", "overflow")}
+    return [(int(a["gate_start"][s]), int(a["gate_close"][s]), int(a["peak_idx"][s]),
+             float(a["peak_value"][s]), bool(a["closed"][s]))
+            for s in np.flatnonzero(a["valid"])]

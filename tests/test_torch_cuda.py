@@ -59,7 +59,15 @@ from ofdm_sync_tpu_torch.ops.windows import running_sum_stream  # noqa: E402
 from ofdm_sync_tpu_torch.params import SystemParams  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import common  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import run_fused_rx  # noqa: E402
-from ofdm_sync_tpu_torch.testing import aa_stimulus, assert_tables_equal  # noqa: E402
+from ofdm_sync_tpu_torch.native import minn_rtl_detect_native  # noqa: E402
+from ofdm_sync_tpu_torch.testing import (  # noqa: E402
+    aa_stimulus,
+    assert_tables_equal,
+    event_tuples,
+    native_events,
+    rtl_channel_leading,
+    rtl_stimulus,
+)
 
 KW = dict(smooth_shift=3, threshold_value=3276, threshold_frac_bits=15)
 
@@ -674,3 +682,51 @@ def test_cuda_zc_iq_primed_matches_plain(cuda, R, W, h, dtype):
                                             gate_init=gate)
     assert_tables_equal(ref, table, "primed D + B")
     assert mode_launch_counts()["zc_metric/primed_iq"] == 2
+
+
+def _oracle(q, L, positions=(900,), seed=0, E=16):
+    iq = rtl_stimulus(np.random.default_rng(seed), q, L=L, positions=positions)
+    det = minn_rtl_detect_native(iq, quarter_len=q, **KW, hysteresis=2, max_events=E,
+                                 return_traces=True)
+    assert det.count >= 1 and not det.overflow
+    return iq, det
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,L", [(64, 4000), (512, 7000), (64, 3 * 2**16 + 37)])
+def test_cuda_kernel_a_equals_cpp_traces(cuda, q, L):
+    """Kernel A's corr/energy mode on the int16 codes: the C++ model's
+    integer corr_total (clipped at 0) and energy_total, rounded once to
+    float32 (its window sums are exact float64), across span seams."""
+    iq, det = _oracle(q, L, positions=range(900, L - 8 * q, 16384))
+    corr, energy = F.minn_rtl_corr_energy_planar_fused(rtl_channel_leading(iq, cuda),
+                                                       quarter_len=q)
+    np.testing.assert_array_equal(corr[0].cpu().numpy(),
+                                  np.maximum(det.corr_total, 0).astype(np.float32))
+    np.testing.assert_array_equal(energy[0].cpu().numpy(), det.energy_total.astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("snr_db", [0.0, 10.0])
+def test_cuda_kernel_b_on_cpp_traces_equals_cpp_events(cuda, snr_db):
+    iq = rtl_stimulus(np.random.default_rng(1), 64, snr_db=snr_db)
+    det = minn_rtl_detect_native(iq, quarter_len=64, hysteresis=2, max_events=16,
+                                 return_traces=True)
+    track = np.maximum(det.corr_total, 0).astype(np.float32)
+    table = F.gate_events(torch.as_tensor(det.above.astype(bool), device=cuda)[None],
+                          torch.as_tensor(track, device=cuda)[None], hysteresis=2,
+                          max_events=16, tie="last", emit_unclosed=False)
+    want = [e[:3] + (float(np.float32(e[3])),) + e[4:] for e in native_events(det)]
+    assert want and event_tuples(table) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,L", [(64, 4000), (512, 7000)])
+def test_cuda_fused_frame_start_within_rtl_tolerance(cuda, q, L):
+    iq, det = _oracle(q, L)
+    table = F.minn_rtl_detect_fused(rtl_channel_leading(iq, cuda, torch.float32),
+                                    quarter_len=q, **KW, hysteresis=2, max_events=16)
+    peaks = [e[2] for e in event_tuples(table)]
+    assert len(peaks) == det.count
+    assert all(abs(a - int(b)) <= 16 for a, b in zip(peaks, det.peak_idx))
+    assert abs(peaks[0] - (900 + 6 * q - 1)) <= 16  # 1Q after the preamble

@@ -6,8 +6,10 @@ card as its default device.
 * the port's `data/channels.npz` is a byte-for-byte copy of the JAX
   package's (same SHA-256);
 * a fresh interpreter that imports every module of the port and
-  `chip_smoke.py` (and so everything it imports) has loaded neither `jax`
-  nor `ofdm_sync_tpu`;
+  `chip_smoke.py` (and so everything it imports) has loaded neither `jax`,
+  `ofdm_sync_tpu` nor `matplotlib`;
+* the port's binding of the C++ oracle builds into the port's own
+  `kernels/_build/`, never into the JAX package's `native/build/`;
 * `resolve_device(None)` is the current CUDA device, and raises where
   there is none.
 """
@@ -15,6 +17,7 @@ card as its default device.
 import dataclasses
 import hashlib
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -65,16 +68,23 @@ def test_channel_bank_is_a_copy():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the package, then chip_smoke (its imports), in a
-    fresh interpreter: neither jax nor the JAX package gets loaded."""
+    """Every module of the package (the ctypes binding of the C++ oracle
+    and every pipeline among them), then chip_smoke (its imports), in a
+    fresh interpreter: neither jax, the JAX package nor matplotlib (which
+    the card's machine lacks) gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ofdm_sync_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'ofdm_sync_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ofdm_sync_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'ofdm_sync_tpu', 'matplotlib')]\n"
         "assert len(mods) > 20, mods\n"
+        "want = ['native', 'pipelines.sc', 'pipelines.minn', 'pipelines.minn_rtl',\n"
+        "        'pipelines.park', 'pipelines.zc_freq', 'pipelines.combined_sc_minn',\n"
+        "        'pipelines.cp_fft_demo']\n"
+        "assert not {'ofdm_sync_tpu_torch.' + m for m in want} - set(mods), mods\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -90,3 +100,15 @@ def test_resolve_device_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert tdevice.resolve_device(None) == torch.device("cuda", 0)
+
+
+def test_native_builds_in_the_ports_own_tree():
+    from ofdm_sync_tpu_torch import native
+
+    path = native.lib_path().resolve()
+    port_build = os.path.join(ROOT, "ofdm_sync_tpu_torch", "kernels", "_build")
+    assert str(path).startswith(port_build + os.sep)
+    assert not str(path).startswith(os.path.join(ROOT, "native", "build"))
+    assert native.SRC.resolve() == pathlib.Path(ROOT, "native", "src", "minn_rtl.cc").resolve()
+    native.load_library()
+    assert path.exists()
