@@ -50,7 +50,21 @@ checkout, then, for each ported path:
   on the C++ model's own traces against its events, A + B against its
   frame starts (within 16 samples), the C++ model built with g++
   (`ofdm_sync_tpu_torch/native.py`); each family's detect timed on one
-  2^24 x 2 stream.
+  2^24 x 2 stream;
+* the sharded path (phase 17, `ofdm_sync_tpu_torch.parallel`): (a) four
+  ranks sharing the card over gloo (started with `spawn`, each loading the
+  kernels this script built) run the sharded Minn-RTL detect at the
+  headline (f32 and int16, meshes (1, 4) and (2, 2)), on the long stream
+  (the overlap split off and on) and its receive chain, the sharded ZC
+  from-IQ detect at phase 12's headline and the sharded [A][A] detect at
+  phase 9's, with preambles across seams, halos and the overlap split;
+  every rank's merged table must equal the one-shot kernels' table (a
+  Minn event may differ only where its gate holds a knife-edge sample, as
+  in phase 14) and the frames the one-shot `extract_frames`; (b) mesh
+  (1, 1) over NCCL in this process: the sharded Minn detect (overlap split
+  on and off) timed against the one-shot A + B, and kernel A on a shard's
+  interior view read in place (its strided mode) against `.contiguous()`
+  of the view plus the kernel.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
@@ -77,6 +91,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: ``--timing [TREE]``: only the timed phases (5, 13, 15, and the kernel C,
@@ -118,9 +133,12 @@ from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     extract_gate_events_carried,
 )
 from ofdm_sync_tpu_torch.ops import waveforms as WV  # noqa: E402
+from ofdm_sync_tpu_torch.ops.extract import extract_frames  # noqa: E402
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
 from ofdm_sync_tpu_torch.ops.windows import cumsum, running_sum_stream  # noqa: E402
 from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams  # noqa: E402
+from ofdm_sync_tpu_torch.parallel import distributed as DI  # noqa: E402
+from ofdm_sync_tpu_torch.parallel import shard as SH  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import (  # noqa: E402
     combined_sc_minn,
     minn,
@@ -144,6 +162,7 @@ from ofdm_sync_tpu_torch.testing import (  # noqa: E402
     native_events,
     rtl_channel_leading,
     rtl_stimulus,
+    table_arrays,
 )
 
 KW = dict(smooth_shift=3, threshold_value=int(0.10 * (1 << 15)), threshold_frac_bits=15)
@@ -2185,6 +2204,340 @@ def phase_families(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded path (`parallel.shard`) on the one card
+# ---------------------------------------------------------------------------
+
+#: phase 17(a)'s ranks, all on the one card over gloo (NCCL takes one rank a card)
+SHARD_RANKS = 4
+SHARD_MESHES = ((1, 4), (2, 2))
+#: the sharded Minn detect's split: the first rows of a shard wait for the halo
+SHARD_ROWS = 2048
+#: frames of the long-stream receive: 4096 samples from the preamble's start
+SHARD_FRAMES = dict(frame_len=4096, timing_offset=-6 * HEADLINE["Q"], max_frames=8)
+
+
+def minn_halo() -> int:
+    return SH.minn_halo_width(HEADLINE["Q"], KW["smooth_shift"], HYST)
+
+
+def shard_events(L: int, batch: int) -> list:
+    """Preambles whose gates cross the (1, 4) seams, the overlap split of a
+    shard (SHARD_ROWS in) and a halo's start (W before a seam), and some
+    inside shards: minn_stimulus's four and five more at the headline (one
+    a stream), eight on one long stream."""
+    Q, W, S = HEADLINE["Q"], minn_halo(), L // 4
+    seams = [S - 6 * Q, 2 * S - 7 * Q, 2 * S + SHARD_ROWS - 6 * Q, 3 * S - W - 2 * Q,
+             S + SHARD_ROWS - 6 * Q]
+    if batch == 1:
+        return [(0, p) for p in [3 * Q, S // 2, 2 * S + S // 2, 3 * S + S // 3] + seams[:4]]
+    return ([(0, 3 * Q), (1, L // 3), (2, L // 2), (3, L - 7 * Q)]
+            + [(4 + k, p) for k, p in enumerate(seams)])
+
+
+def seq_block(x, mesh, block: int):
+    """The rank's (C, B_loc, block) block of a (C, batch, n) stream, zero
+    past n (the last block of a length that does not divide)."""
+    bb = x.shape[1] // mesh.n_data
+    lo = mesh.seq * block
+    out = torch.zeros((x.shape[0], bb, block), dtype=x.dtype, device=x.device)
+    hi = min(lo + block, x.shape[-1])
+    out[..., : hi - lo] = x[:, mesh.data * bb: (mesh.data + 1) * bb, lo:hi]
+    return out
+
+
+def zc_case(dev):
+    """Phase 12's from-IQ headline stimulus, its template, taps and norm."""
+    B, n = ZC_HEADLINE["batch"], ZC_HEADLINE["n"]
+    ref, taps, ref_norm = pss_template(2048)
+    events = [(0, 3000), (1, n // 3), (2, n // 2), (3, n - len(ref) - 500)]
+    return zc_iq_stimulus(B, n, ref, dev, events=events), taps, events, dict(
+        ref_len=len(ref), ref_norm=ref_norm, **ZC_CFAR, hysteresis=ZC_EVENTS["hysteresis"],
+        max_events=ZC_EVENTS["max_events"])
+
+
+def aa_case(dev):
+    B, n, lag = AA_HEADLINE["batch"], AA_HEADLINE["n"], AA_HEADLINE["lag"]
+    S = n // 4
+    events = [(0, 3 * lag), (1, n // 3), (2, n // 2), (3, n - 2 * lag - 700),
+              (4, S - lag), (5, 2 * S - 2 * lag + 1), (6, 3 * S - 3 * lag)]
+    return aa_stimulus(B, n, lag, dev, events=events), events
+
+
+def shard_rank(rank: int) -> dict:
+    """One rank of phase 17(a): every sharded run on its block, the launch
+    counts of each run, the tables as host arrays.  Each rank draws the
+    whole stimulus on the card from the same seeded generator as the parent
+    and keeps its block; it loads the kernel library the parent built."""
+    torch.cuda.set_device(0)
+    dev = card_device()
+    if build.build().seconds:
+        raise AssertionError(f"rank {rank} rebuilt the kernels")
+    build.library()
+    meshes = {m: SH.make_stream_mesh(*m) for m in SHARD_MESHES}
+    Q = HEADLINE["Q"]
+    det = dict(quarter_len=Q, **KW, hysteresis=HYST, rows=SHARD_ROWS)
+    out = {}
+
+    def run(key, fn):
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        out[key] = (res, mode_launch_counts(), launch_counts())
+
+    B, L = HEADLINE["batch"], HEADLINE["L"]
+    x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+    for name in ("f32", "i16"):
+        x = x32 if name == "f32" else x32.to(torch.int16)
+        for m, mesh in meshes.items():
+            blk = seq_block(x, mesh, L // mesh.n_seq)
+            run(("minn", name, m), lambda: (mesh.data, table_arrays(
+                SH.sharded_minn_rtl_detect_fused(blk, mesh, **det, overlap_halo=True))))
+            del blk
+        del x
+    del x32
+    torch.cuda.empty_cache()
+
+    mesh, Ll = meshes[1, 4], LONG["L"]
+    x, _ = minn_stimulus(1, Ll, Q, dev, seed=17, events=shard_events(Ll, 1))
+    blk = seq_block(x, mesh, Ll // 4)
+    del x
+    for overlap in (False, True):
+        run(("long", overlap), lambda: table_arrays(SH.sharded_minn_rtl_detect_fused(
+            blk, mesh, **det, max_events=32, emit_unclosed=True, overlap_halo=overlap)))
+    run(("receive",), lambda: [a.cpu().numpy() if torch.is_tensor(a) else table_arrays(a)
+                                for a in SH.sharded_minn_rtl_receive(
+                                    blk, mesh, **det, max_events=32, **SHARD_FRAMES)])
+    del blk
+
+    def zc():
+        x, taps, _, kw = zc_case(dev)
+        mf = MF.matched_filter_ols(x, taps)
+        Lc = mf.shape[-1]
+        mf_b, iq_b = seq_block(mf, mesh, -(-Lc // 4)), seq_block(x, mesh, -(-Lc // 4))
+        del x, mf
+        return table_arrays(SH.sharded_zc_iq_detect(mf_b, iq_b, mesh, **kw, stream_len=Lc))
+
+    run(("zc",), zc)
+    torch.cuda.empty_cache()
+
+    def aa():
+        x, _ = aa_case(dev)
+        blk = seq_block(x, mesh, AA_HEADLINE["n"] // 4)
+        del x
+        t, P, M = SH.sharded_aa_detect_fused(blk, mesh, half_len=AA_HEADLINE["lag"],
+                                             threshold=AA_THR, hysteresis=AA_HYST)
+        return table_arrays(t), P.cpu().numpy(), M.cpu().numpy()
+
+    run(("aa",), aa)
+    return out
+
+
+def host_table(arrays: dict) -> GateEvents:
+    return GateEvents(*(torch.from_numpy(np.asarray(arrays[f])) for f in GateEvents._fields))
+
+
+def rank_events(arrays, ref, lo: int, h: int, what: str, knife=None, cap=None,
+                ref_cap=None) -> int:
+    """A rank's merged table (its streams lo, lo + 1, ...) against the
+    one-shot host table ``ref``, event by event; an event may differ only
+    where its gate span holds a knife-edge sample (`compare_events`).
+    Returns the streams so excused."""
+    have_t = host_table(arrays)
+    n = have_t.count.shape[0]
+    have = [table_events(have_t, b, cap) for b in range(n)]
+    want = [table_events(ref, lo + b, ref_cap) for b in range(n)]
+    kn = None if knife is None else {b - lo: v for b, v in knife.items() if lo <= b < lo + n}
+    return len(compare_events(have, want, h, what, kn))
+
+
+def need(modes: dict, what: str, *names: str) -> None:
+    """Fail unless each ``kernel/mode`` (or kernel) launched in a run."""
+    missing = [m for m in names if modes.get(m, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} not launched ({modes})")
+
+
+def seam_gates(above, h: int, seams) -> dict:
+    """For a one-shot above (1, L): at each seam, whether a gate is open
+    across it and whether the last above sample before it lies within h."""
+    out = {}
+    for s in seams:
+        before = above[0, s - h: s].nonzero().flatten().tolist()
+        out[s] = dict(last_above_within_h=bool(before), above_at_seam=bool(above[0, s]))
+    return out
+
+
+def phase_shards(dev, card: str) -> dict:
+    """Phase 17: (a) the sharded Minn-RTL detect and receive, ZC from-IQ
+    and [A][A] detects over SHARD_RANKS gloo ranks sharing the card, every
+    rank's merged table against the one-shot kernels' on the card; (b)
+    mesh (1, 1) over NCCL in this process, timed against the one-shot
+    kernels, and kernel A on a shard's interior view against a copy."""
+    Q, B, L, h = HEADLINE["Q"], HEADLINE["batch"], HEADLINE["L"], HYST
+    W = minn_halo()
+    log(f"== phase 17: the sharded path on the one card: {SHARD_RANKS} gloo ranks, meshes "
+        f"{SHARD_MESHES}, halo W = {W}, overlap split at {SHARD_ROWS}")
+    t0 = time.perf_counter()
+    det = dict(quarter_len=Q, **KW, hysteresis=h)
+    res = {}
+
+    # the one-shot references on the card (host tables, knife-edge samples)
+    x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+    st = F.minn_rtl_metric_planar_fused(x32, quarter_len=Q, **KW)
+    knife = minn_knife(st, 3 * Q - 1)
+    del st
+    ref = {name: cpu_table(F.minn_rtl_detect_fused(x, **det))
+           for name, x in (("f32", x32), ("i16", x32.to(torch.int16)))}
+    for b, pos in shard_events(L, B):
+        pk = ref["f32"].peak_idx[b][ref["f32"].valid[b]].tolist()
+        if not any(5 * Q <= p - pos <= 7 * Q for p in pk):
+            raise AssertionError(f"phase 17: preamble at {b}:{pos} not found one-shot")
+    del x32
+    Ll = LONG["L"]
+    xl, _ = minn_stimulus(1, Ll, Q, dev, seed=17, events=shard_events(Ll, 1))
+    stl = F.minn_rtl_metric_planar_fused(xl, quarter_len=Q, **KW)
+    knife_long = minn_knife(stl, 3 * Q - 1)
+    res["long_seams"] = seam_gates(stl.above_threshold, h, [k * Ll // 4 for k in (1, 2, 3)])
+    del stl
+    ref_long = cpu_table(F.minn_rtl_detect_fused(xl, **det, max_events=32, emit_unclosed=True))
+    x, taps, zc_events, zkw = zc_case(dev)
+    ref_zc = cpu_table(ZF.zc_iq_cfar_detect(MF.matched_filter_ols(x, taps), x, **zkw))
+    del x
+    x, aa_events = aa_case(dev)
+    t, P, M = AF.aa_detect_fused(x, half_len=AA_HEADLINE["lag"])
+    ref_aa, ref_aa_cap = cpu_table(t), torch.cat([P, M[:, None]], dim=1).cpu()
+    del x, t, P, M
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+
+    # (a) the ranks
+    ranks = DI.run_ranks(shard_rank, SHARD_RANKS, backend="gloo", timeout_s=600)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    knives = collections.Counter()
+    strided = 0
+    for r, out in enumerate(ranks):
+        for name in ("f32", "i16"):
+            for m in SHARD_MESHES:
+                (d, arrays), modes, _ = out["minn", name, m]
+                what = f"rank {r} minn {name} mesh {m}"
+                need(modes, what, "minn_rtl_metric/strided", "minn_rtl_metric/primed",
+                     "gate_events/primed")
+                strided += modes.get("minn_rtl_metric/strided", 0)
+                knives["minn"] += rank_events(arrays, ref[name], d * (B // m[0]), h, what, knife)
+        for overlap in (False, True):
+            arrays, modes, _ = out["long", overlap]
+            what = f"rank {r} long stream overlap {overlap}"
+            need(modes, what, "minn_rtl_metric/primed", "gate_events/primed",
+                 *(("minn_rtl_metric/strided",) if overlap else ()))
+            if not overlap and modes.get("minn_rtl_metric/strided"):
+                raise AssertionError(f"{what}: a strided launch without the split")
+            strided += modes.get("minn_rtl_metric/strided", 0)
+            knives["long"] += rank_events(arrays, ref_long, 0, h, what, knife_long)
+        (table, frames, starts, valid), modes, _ = out["receive",]
+        strided += modes.get("minn_rtl_metric/strided", 0)
+        knives["long"] += rank_events(table, ref_long, 0, h, f"rank {r} receive", knife_long)
+        merged = GateEvents(*(torch.as_tensor(np.asarray(table[f])[0], device=dev)
+                              for f in GateEvents._fields))
+        want = extract_frames(xl[:, 0], merged, **SHARD_FRAMES)
+        for nm, w, g in zip(("frames", "starts", "valid"), want, (frames, starts, valid)):
+            if not np.array_equal(w.cpu().numpy(), g[0]):
+                raise AssertionError(f"rank {r} receive: {nm} differ from the one-shot "
+                                     "extract_frames on the merged table")
+        res.setdefault("receive_frames", int(valid.sum()))
+        arrays, modes, counts = out["zc",]
+        need({**modes, **counts}, f"rank {r} zc", "zc_metric/primed_iq", "gate_events/primed",
+             "matched_filter_ols")
+        rank_events(arrays, ref_zc, 0, ZC_EVENTS["hysteresis"], f"rank {r} zc")
+        (arrays, P, M), modes, _ = out["aa",]
+        need(modes, f"rank {r} aa", "aa_metric/primed", "gate_events/primed")
+        rank_events(arrays, ref_aa, 0, AA_HYST, f"rank {r} aa",
+                    cap=torch.from_numpy(np.concatenate([P, M[:, None]], axis=1)),
+                    ref_cap=ref_aa_cap)
+    del xl
+    # a noise-only ZC stream may hold an event only in the mf's last ZC_TAIL outputs
+    n, R = ZC_HEADLINE["n"], 2048
+    quiet = torch.ones(ZC_HEADLINE["batch"], dtype=torch.bool)
+    quiet[[b for b, _ in zc_events]] = False
+    body = (ref_zc.valid & (ref_zc.peak_idx < n + R - 1 - ZC_TAIL)).any(dim=-1)
+    if (quiet & body).any():
+        raise AssertionError(f"phase 17 zc: events in noise-only streams "
+                             f"{(quiet & body).nonzero().flatten().tolist()}")
+    check_zc_found(ref_zc, zc_events, R, "phase 17 zc")
+    check_aa_found(ref_aa, aa_events, AA_HEADLINE["lag"], "phase 17 aa")
+    res.update(strided_launches=strided, knife_streams=dict(knives), ref_s=t_ref,
+               ranks_s=t_ranks, events=dict(minn=int(ref["f32"].count.sum()),
+                                           long=int(ref_long.count.sum()),
+                                           zc=int(ref_zc.count.sum()),
+                                           aa=int(ref_aa.count.sum())))
+    log(f"  (a) {SHARD_RANKS} ranks x (Minn headline f32 / int16 on {SHARD_MESHES}, long stream "
+        f"overlap off / on, receive, ZC from-IQ, [A][A]): every merged table == one-shot "
+        f"({res['events']} events one-shot; streams excused on a knife edge {dict(knives)}); "
+        f"frames == extract_frames ({res['receive_frames']} valid); kernel A strided launches "
+        f"{strided}; long-stream seams {res['long_seams']}; references {t_ref:.1f} s, ranks "
+        f"{t_ranks:.1f} s")
+
+    # (b) mesh (1, 1) over NCCL in this process
+    x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+    DI.initialize(f"tcp://localhost:{DI.free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = SH.make_stream_mesh(1, 1)
+        for overlap in (True, False):
+            t = SH.sharded_minn_rtl_detect_fused(x32, mesh, **det, overlap_halo=overlap,
+                                                 rows=SHARD_ROWS)
+            knives["mesh11"] += rank_events(table_arrays(t), ref["f32"], 0, h,
+                                            f"mesh (1, 1) overlap {overlap}", knife)
+        sharded = lambda ov: lambda: SH.sharded_minn_rtl_detect_fused(  # noqa: E731
+            x32, mesh, **det, overlap_halo=ov, rows=SHARD_ROWS)
+        view = x32[..., SHARD_ROWS:]
+        run_view = lambda: F.minn_rtl_metric(view, quarter_len=Q, **KW)  # noqa: E731
+        run_copy = lambda: F.minn_rtl_metric(view.contiguous(), quarter_len=Q, **KW)  # noqa: E731
+        reset_launch_counts()
+        res["strided_err"] = check_metric(view, Q, "kernel A on the interior view")
+        if mode_launch_counts().get("minn_rtl_metric/strided") != 1:
+            raise AssertionError(f"the interior view did not run strided: {mode_launch_counts()}")
+        res.update(
+            sharded_overlap_ms=cuda_ms(sharded(True)), sharded_serial_ms=cuda_ms(sharded(False)),
+            one_shot_ms=cuda_ms(lambda: F.minn_rtl_detect_fused(x32, **det)),
+            view_ms=cuda_ms(run_view), copy_ms=cuda_ms(run_copy),
+            sharded_overlap_kernel_ms=kernel_ms(sharded(True)),
+            one_shot_kernel_ms=kernel_ms(lambda: F.minn_rtl_detect_fused(x32, **det)),
+            view_kernel_ms=kernel_ms(run_view), copy_kernel_ms=kernel_ms(run_copy),
+            plain_view_ms=cuda_ms(lambda: plain_metric(view, Q), reps=3),
+            view_work=a_work(B, L - SHARD_ROWS, 4, 4, 5))
+        # the sharded detect's parts beside its kernels: one priming pass
+        # (the plain metric over W samples), the local merge of the split's
+        # two tables, the merge across seq (all-gather of one rank)
+        tail = x32[..., SHARD_ROWS - W: SHARD_ROWS]
+        carried = dict(det, emit_unclosed=True, stream_len_global=L)
+        pieces = (F.minn_rtl_detect_fused(x32[..., :SHARD_ROWS], **carried, base_index=0),
+                  F.minn_rtl_detect_fused(view, **carried, base_index=SHARD_ROWS))
+        stacked = SH.stack_tables(pieces)
+        res.update(
+            prime_ms=cuda_ms(lambda: plain_metric(tail, Q)),
+            local_merge_ms=cuda_ms(lambda: SH.merge_stacked_event_tables(
+                stacked, h=h, E=8, K=1, tie_last=True, emit_unclosed=True)),
+            seq_merge_ms=cuda_ms(lambda: SH.merge_shard_event_tables(
+                pieces[1], mesh, h=h, E=8, tie_last=True, emit_unclosed=False)))
+        del pieces, stacked
+    finally:
+        dist.destroy_process_group()
+    del x32, view
+    torch.cuda.empty_cache()
+    res["knife_streams"] = dict(knives)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  (b) mesh (1, 1) over NCCL, {B} x {L} x 2 f32: sharded detect, overlap split "
+        f"{res['sharded_overlap_ms']:.3f} ms (profiler {res['sharded_overlap_kernel_ms']}), one "
+        f"primed call {res['sharded_serial_ms']:.3f} ms; one-shot A + B {res['one_shot_ms']:.3f} "
+        f"ms (profiler {res['one_shot_kernel_ms']}); kernel A on x[..., {SHARD_ROWS}:] in place "
+        f"{res['view_ms']:.3f} ms (profiler {res['view_kernel_ms']}) vs .contiguous() + kernel "
+        f"{res['copy_ms']:.3f} ms (profiler {res['copy_kernel_ms']}), plain "
+        f"{res['plain_view_ms']:.3f} ms; parts: priming pass {res['prime_ms']:.3f} ms, local "
+        f"merge {res['local_merge_ms']:.3f} ms, merge across seq {res['seq_merge_ms']:.3f} ms; "
+        f"phase {res['seconds']:.1f} s; card {card}")
+    return res
+
+
 def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
     """Kernel E's function as one PyTorch call, `conv1d` (cuDNN, TF32 off):
     the complex full convolution of each plane pair with the taps as a
@@ -2283,6 +2636,7 @@ def main() -> int:
     streams = phase_streams(dev, card)
     lat = phase_latency(dev, card)
     fam = phase_families(dev, card)
+    shards = phase_shards(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    for name in counts}
@@ -2304,6 +2658,10 @@ def main() -> int:
          "ofdm_sync_tpu/kernels/pallas_minn.py:113", modes.get("minn_rtl_metric/corr_energy", 0),
          sk["errs"]["corr_energy"], sk["res"]["corr_energy_f32_ms"],
          sk["res"]["plain_corr_energy_ms"], a_work(B, L, 4, 4, 8, scan=False), None),
+        ("minn_rtl_metric[strided]", "minn_rtl_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_minn_tm.py:269", shards["strided_launches"],
+         shards["strided_err"], shards["view_ms"], shards["plain_view_ms"], shards["view_work"],
+         None),
         ("minn_rtl_metric[primed]", "minn_rtl_metric.cu",
          "ofdm_sync_tpu/kernels/pallas_minn.py:403", modes.get("minn_rtl_metric/primed", 0),
          max(sk["errs"]["primed_a"], lat["a_primed_err"]), lat["a_primed_ms"],
@@ -2362,6 +2720,7 @@ def main() -> int:
                       "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head,
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
                       "families": {k: fam[k] for k in ("simulations", "oracle", "timings")},
+                      "shards": {k: v for k, v in shards.items() if k != "view_work"},
                       "other_bounds_ms": other_bounds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,9 @@
 // gate/event half is kernel B (gate_events.cu).
 //
 // Computes, for each stream b and sample n of the channel-leading input
-// x[c, b, n] (C = 2 * branches planar rows, float32 or int16 ADC codes):
+// x[c, b, n] (C = 2 * branches planar rows, float32 or int16 ADC codes, at
+// x + c * x_plane + b * x_row + n: a contiguous tensor or a strided view,
+// such as the block subrange x[..., a:b] of a shard, read in place):
 //   u[n] = sum_c x[c,n] * x[c,n-Q]           quarter product, all branches
 //   p[n] = sum_c x[c,n]^2                    power
 //   corr_positive[n] = max(sum_{2Q window} u, 0)
@@ -17,6 +19,10 @@
 // Samples before n = 0 read the right-aligned history hist[c, b, Hh + n]
 // (n >= -Hh; zero before it or without a history), and smooth[-1] is
 // carry_in[b] (zero without one).  base is the global index of sample 0.
+// The strided view is the counterpart of the TPU kernel's in_block_stride /
+// in_block_offset (pallas_minn_tm.py:269-309), which runs the kernel on a
+// block subrange of a buffer without copying it.  Rows whose start is not
+// 16-byte (int16: 8-byte) aligned load through the scalar path.
 // Modes, by which outputs are given (a null pointer is not written):
 //   corr/above (#1, #2):  corr, above
 //   full metric (#3):     corr, smooth, energy, above
@@ -73,13 +79,15 @@ constexpr int min_blocks(int planes) { return planes > 4 ? 3 : 4; }
 constexpr int kMinSpanTiles = 16;
 
 struct Args {
-  const void* x;          // (C, batch, L) float32 or int16
+  const void* x;          // (C, batch, L) float32 or int16, strides x_plane, x_row
+  long long x_plane, x_row;
   const float* hist;      // (C, batch, hist_len) right-aligned, or null
   const float* carry_in;  // (batch,) smoothing register before sample 0, or null
   int C, batch, L, Q, halo, hist_len, scan, base, valid_from;
   int spans, span;        // spans per stream, samples per span
   int ring, ring_up;      // x ring (>= Q + kTile) and u/p ring (>= 3Q + kTile) lengths
-  int vec;                // 16-byte (int16: 8-byte) rows: vector loads and stores
+  int vin;                // every input row starts 16-byte (int16: 8-byte) aligned: vector loads
+  int vec;                // L % 4 == 0: vector stores of the (batch, L) outputs
   float alpha, frac_scale, thr;
   float* corr;            // (batch, L) outputs; null: not written
   float* smooth;
@@ -151,8 +159,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kC)) minn_rtl_metric_kern
   // walk start: the halo before the span, or the history at the stream's head
   const int w0 = a.scan ? max(s0 - a.halo, -h3) : s0 - h3;
   const int js = w0 + 3 * Q - 1;  // first sample whose 3Q window lies after w0
-  const size_t plane = (size_t)a.batch * (size_t)L;
-  const T* xs = (const T*)a.x + (size_t)b * (size_t)L;
+  const size_t plane = (size_t)a.x_plane;
+  const T* xs = (const T*)a.x + (size_t)b * (size_t)a.x_row;
   const float* hs = a.hist ? a.hist + (size_t)b * (size_t)a.hist_len : nullptr;
   const size_t hplane = (size_t)a.batch * (size_t)a.hist_len;
   const bool qa = (Q & 3) == 0;  // ring accesses at a Q offset are 16-byte aligned
@@ -165,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kC)) minn_rtl_metric_kern
     if (hs && n >= -a.hist_len) return hs[(size_t)c * hplane + (size_t)(a.hist_len + n)];
     return 0.0f;
   };
-  auto fast = [&](int n0) { return a.vec && n0 >= 0 && n0 + kItems <= L; };
+  auto fast = [&](int n0) { return a.vin && n0 >= 0 && n0 + kItems <= L; };
 
   // prologue: x[w0 - Q, w0) into the ring, the u/p rings zero (the window
   // sums start from zero at w0)
@@ -410,7 +418,9 @@ int launch_planes(Args& a, void* stream) {
 
 }  // namespace
 
-// x (C, batch, L) float32 (is_i16 = 0) or int16, C <= 8; hist (C, batch,
+// x (C, batch, L) float32 (is_i16 = 0) or int16, C <= 8, element (c, b, n)
+// at x + c * x_plane + b * x_row + n (contiguous: x_plane = batch * L,
+// x_row = L); hist (C, batch,
 // hist_len) float32 or null; carry_in (batch,) float32 or null; outputs
 // (batch, L) and carry_out (batch,), each null when not wanted.  scan = 0
 // runs the corr/energy mode (no IIR; smooth, above and carry_out must be
@@ -418,16 +428,19 @@ int launch_planes(Args& a, void* stream) {
 // span (ignored when scan = 0).  The caller keeps base + L below 2^31 and
 // (C * (Q + 1024) + 2 * (3Q + 1024)) * 4 bytes within 227 KB.
 extern "C" int minn_rtl_metric(int is_i16, const void* x, const void* hist,
-                               const void* carry_in, int C, int batch, long long L, int Q,
+                               const void* carry_in, int C, int batch, long long L,
+                               long long x_plane, long long x_row, int Q,
                                int halo, int hist_len, int scan, long long base, float alpha,
                                long long valid_from, float frac_scale, float thr, void* corr,
                                void* smooth, void* energy, void* above, void* carry_out,
                                void* stream) {
   if (!scan && (smooth || above || carry_out)) return (int)cudaErrorInvalidValue;
-  if (C < 1 || C > 8 || Q < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > 8 || Q < 1 || x_plane < 0 || x_row < 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || L <= 0) return (int)cudaSuccess;
   Args a{};
   a.x = x;
+  a.x_plane = x_plane;
+  a.x_row = x_row;
   a.hist = (const float*)hist;
   a.carry_in = (const float*)carry_in;
   a.C = C;
@@ -441,7 +454,8 @@ extern "C" int minn_rtl_metric(int is_i16, const void* x, const void* hist,
   a.valid_from = (int)valid_from;
   a.ring = ((Q + kTile + 3) & ~3);
   a.ring_up = ((3 * Q + kTile + 3) & ~3);
-  a.vec = (L % 4 == 0) && ((uintptr_t)x % (is_i16 ? 8 : 16) == 0);
+  a.vin = ((uintptr_t)x % (is_i16 ? 8 : 16) == 0) && x_plane % 4 == 0 && x_row % 4 == 0;
+  a.vec = L % 4 == 0;
   a.alpha = alpha;
   a.frac_scale = frac_scale;
   a.thr = thr;

@@ -4,7 +4,8 @@ Each kernel wrapper adds one to its ``.launches`` where it launches its
 kernel on a card, and nowhere else (a CPU tensor runs the plain version and
 counts nothing); at the same place it adds one to ``.modes[name]`` for each
 mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
-``corr_energy``, and ``primed``; kernels B, C, D: ``primed``, the
+``corr_energy``, ``primed``, and ``strided`` for a view read in place;
+kernels B, C, D: ``primed``, the
 carried-state mode, which for D is its magnitude mode; D's IQ mode with a
 halo or a global base: ``primed_iq``).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.

@@ -218,8 +218,9 @@ def _minn_metric(
         pick = lambda name, t: t if name in wanted else None  # noqa: E731
         return MinnMetricRows(st.corr_positive, pick("smooth", st.smooth_metric),
                               pick("energy", st.energy_total), st.above_threshold, carry_out)
-    if not x.is_contiguous():
-        raise ValueError("kernel A needs a contiguous input")
+    if L > 1 and x.stride(-1) != 1:
+        raise ValueError(f"kernel A reads a view with unit stride along time, got strides "
+                         f"{x.stride()}")
     if C > 8:
         raise ValueError(f"kernel A takes at most 4 branches, got {C // 2}")
     ring = lambda n: -(-n // 4) * 4  # noqa: E731
@@ -240,14 +241,16 @@ def _minn_metric(
     if batch and L:
         alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
         err = build.library().minn_rtl_metric(
-            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch, L, Q,
+            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch, L,
+            x.stride(0), x.stride(1), Q,
             metric_halo(Q, smooth_shift), 0 if hist is None else hist.shape[-1], int(scan), base,
             alpha, max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
             *(_ptr(out.get(f)) for f in ("corr", "smooth", "energy", "above", "carry_out")),
             _stream(x))
         build.check(err, "minn_rtl_metric")
         primed = hist is not None or carry is not None or base != 0 or emit_state
-        _count(minn_rtl_metric, mode, *(("primed",) if primed else ()))
+        _count(minn_rtl_metric, mode, *(("primed",) if primed else ()),
+               *(("strided",) if not x.is_contiguous() else ()))
     return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"), out.get("above"),
                           carry_out)
 
@@ -269,7 +272,12 @@ def minn_rtl_metric(
     smoothing register at the last sample, carry_out (batch,) float32.
     Primed: ``base_index`` (a host integer) is the global index of sample
     0, ``hist_init`` (C, batch, <=H) float32 the samples before it,
-    right-aligned, ``carry_init`` (batch,) the register before it."""
+    right-aligned, ``carry_init`` (batch,) the register before it.
+
+    x may be a strided view with unit stride along time, such as the block
+    subrange ``shard[..., a:b]`` (the counterpart of the TPU kernel's
+    ``in_block_stride`` / ``in_block_offset``): the kernel reads it in place,
+    and the launch counts as mode ``strided``; any other view raises."""
     o = _minn_metric(x, "corr_above", quarter_len=quarter_len, smooth_shift=smooth_shift,
                      threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
                      base_index=base_index, hist_init=hist_init, carry_init=carry_init,

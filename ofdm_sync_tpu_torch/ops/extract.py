@@ -15,6 +15,33 @@ import torch
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
 
 
+def gather_windows(iq: torch.Tensor, offsets: torch.Tensor, keep: torch.Tensor,
+                   frame_len: int) -> torch.Tensor:
+    """iq ``(batch, C, L)``, window offsets ``(batch, K)`` (any int, may lie
+    outside the stream), keep ``(batch, K)`` bool -> ``(batch, K, C,
+    frame_len)``: ``iq[..., o: o + frame_len]`` of each window, read in
+    place, zero at positions outside ``[0, L)`` and in windows not kept."""
+    batch, C, L = iq.shape
+    K = offsets.shape[-1]
+    pos = offsets.to(torch.int64).unsqueeze(-1) + torch.arange(frame_len, device=iq.device)
+    held = keep.unsqueeze(-1) & (pos >= 0) & (pos < L)
+    win = torch.gather(iq.unsqueeze(1).expand(batch, K, C, L), -1,
+                       pos.clamp(0, L - 1).unsqueeze(2).expand(batch, K, C, frame_len))
+    return torch.where(held.unsqueeze(2), win, torch.zeros((), dtype=iq.dtype, device=iq.device))
+
+
+def pad_slots(frames, starts, valid, max_frames: int):
+    """(frames, starts int32, valid) of K slots padded with empty slots to
+    ``max_frames``."""
+    batch, K, C, F = frames.shape
+    pad = max_frames - K
+    if pad == 0:
+        return frames, starts.to(torch.int32), valid
+    return (torch.cat([frames, frames.new_zeros((batch, pad, C, F))], dim=1),
+            torch.cat([starts, starts.new_zeros((batch, pad))], dim=1).to(torch.int32),
+            torch.cat([valid, valid.new_zeros((batch, pad))], dim=1))
+
+
 def extract_frames_batched(
     iq: torch.Tensor,
     table: GateEvents,
@@ -26,28 +53,15 @@ def extract_frames_batched(
     """iq ``(batch, C, L)``, table fields ``(batch, E)`` -> frames
     ``(batch, max_frames, C, frame_len)``, starts ``(batch, max_frames)``
     int32 (clipped into the stream), valid ``(batch, max_frames)`` bool."""
-    batch, C, L = iq.shape
-    E = table.peak_idx.shape[-1]
-    K = min(max_frames, E)
-    dev = iq.device
-    slot = torch.arange(K, device=dev)
+    L = iq.shape[-1]
+    K = min(max_frames, table.peak_idx.shape[-1])
+    slot = torch.arange(K, device=iq.device)
     valid = table.valid[:, :K] & (slot < table.count.unsqueeze(-1))
     starts = (table.peak_idx[:, :K].to(torch.int64) + timing_offset).clamp(
         0, max(L - frame_len, 0))
     if frame_len > L:
         raise ValueError(f"frame_len {frame_len} exceeds the stream length {L}")
-    idx = starts.unsqueeze(-1) + torch.arange(frame_len, device=dev)  # (batch, K, F)
-    gathered = torch.gather(
-        iq.unsqueeze(1).expand(batch, K, C, L), -1,
-        idx.unsqueeze(2).expand(batch, K, C, frame_len))
-    frames = torch.where(valid[..., None, None], gathered,
-                         torch.zeros((), dtype=iq.dtype, device=dev))
-    if K < max_frames:
-        pad = max_frames - K
-        frames = torch.cat([frames, frames.new_zeros((batch, pad, C, frame_len))], dim=1)
-        starts = torch.cat([starts, starts.new_zeros((batch, pad))], dim=1)
-        valid = torch.cat([valid, valid.new_zeros((batch, pad))], dim=1)
-    return frames, starts.to(torch.int32), valid
+    return pad_slots(gather_windows(iq, starts, valid, frame_len), starts, valid, max_frames)
 
 
 def extract_frames(

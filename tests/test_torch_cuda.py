@@ -730,3 +730,71 @@ def test_cuda_fused_frame_start_within_rtl_tolerance(cuda, q, L):
     assert len(peaks) == det.count
     assert all(abs(a - int(b)) <= 16 for a, b in zip(peaks, det.peak_idx))
     assert abs(peaks[0] - (900 + 6 * q - 1)) <= 16  # 1Q after the preamble
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("primed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("row", ["aligned", "odd"])
+@pytest.mark.parametrize("offset", [0, 1, 4, 512])
+def test_cuda_metric_strided_view(cuda, offset, row, dtype, primed):
+    """Kernel A reads a view x[..., a:a + n] of a wider buffer in place (its
+    strided mode, the counterpart of in_block_stride / in_block_offset):
+    outputs bit-equal to the same data made contiguous, and to the plain
+    version by the phase-3 rules; unaligned rows take the scalar loads."""
+    q, batch, n = 64, 3, 40_003
+    width = offset + n + (5 if row == "aligned" else 6)
+    width += (-width % 4) if row == "aligned" else (1 - width % 2)
+    buf = torch.from_numpy(_stimulus(batch, width, q, [(0, offset + 1000), (2, offset + 30_000)],
+                                     seed=offset)).to(dtype).to(cuda)
+    view = buf[..., offset: offset + n]
+    assert not view.is_contiguous() and view.stride(1) == width
+    pk = {}
+    if primed:
+        pk = dict(base_index=4096 + offset, carry_init=torch.rand(batch, device=cuda) * 1e4,
+                  hist_init=torch.from_numpy(_stimulus(batch, 3 * q, q, [], seed=7)).to(cuda))
+    reset_launch_counts()
+    corr, above, carry = F.minn_rtl_metric(view, quarter_len=q, **KW, **pk, emit_state=True)
+    torch.cuda.synchronize()
+    assert mode_launch_counts().get("minn_rtl_metric/strided") == 1
+    c2, a2, k2 = F.minn_rtl_metric(view.contiguous(), quarter_len=q, **KW, **pk, emit_state=True)
+    assert mode_launch_counts().get("minn_rtl_metric/strided") == 1
+    assert torch.equal(corr, c2) and torch.equal(above, a2) and torch.equal(carry, k2)
+    hist = pk.get("hist_init")
+    st = minn_rtl_metric_planar(F._planar_view(view), quarter_len=q, **KW,
+                                base_index=pk.get("base_index", 0),
+                                hist_init=None if hist is None else F._planar_view(hist),
+                                carry_init=pk.get("carry_init"))
+    assert _rel(corr, st.corr_positive) <= 2e-5
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    assert not ((above != st.above_threshold) & (margin > 1e-5 * e_s.abs())).any()
+    assert int(above.sum()) > 0
+    with pytest.raises(ValueError, match="unit stride"):
+        F.minn_rtl_metric(buf[..., ::2], quarter_len=q, **KW)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_minn_two_ranks_on_one_card(cuda):
+    """`parallel.shard.sharded_minn_rtl_detect_fused` over two gloo ranks
+    sharing the card (mesh (1, 2)), the overlap split off and on, equals
+    the one-shot kernels A + B; the split runs kernel A strided."""
+    from ofdm_sync_tpu_torch.kernels import build
+    from ofdm_sync_tpu_torch.parallel import distributed
+    from torch_shard_ranks import cuda_minn_rank
+
+    q, batch, L, rows = 512, 4, 2 * 65_536, 2048
+    seam = L // 2
+    x = _stimulus(batch, L, q, [(0, seam - 6 * q), (1, seam - 3 * q), (2, seam + rows - 5 * q),
+                                (3, 20_000)], seed=11)
+    kw = dict(quarter_len=q, **KW, hysteresis=2)
+    build.library()  # the ranks load the library built here
+    ranks = distributed.run_ranks(cuda_minn_rank, 2, (x, kw, rows), timeout_s=300)
+    ref = F.minn_rtl_detect_fused(torch.from_numpy(x).to(cuda), **kw)
+    assert (ref.count >= 1).all()
+    for r, out in enumerate(ranks):
+        for overlap in (False, True):
+            assert_tables_equal(ref, GateEvents(*(torch.from_numpy(out[overlap][f])
+                                                  for f in GateEvents._fields)),
+                                f"rank {r} overlap {overlap}", 1e-6)
+        assert out["modes"].get("minn_rtl_metric/strided", 0) == 2

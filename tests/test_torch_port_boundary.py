@@ -5,7 +5,8 @@ card as its default device.
   equals the JAX package's;
 * the port's `data/channels.npz` is a byte-for-byte copy of the JAX
   package's (same SHA-256);
-* a fresh interpreter that imports every module of the port and
+* a fresh interpreter that imports every module of the port (the
+  sharded path `ofdm_sync_tpu_torch.parallel` among them) and
   `chip_smoke.py` (and so everything it imports) has loaded neither `jax`,
   `ofdm_sync_tpu` nor `matplotlib`;
 * the port's binding of the C++ oracle builds into the port's own
@@ -68,10 +69,10 @@ def test_channel_bank_is_a_copy():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the package (the ctypes binding of the C++ oracle
-    and every pipeline among them), then chip_smoke (its imports), in a
-    fresh interpreter: neither jax, the JAX package nor matplotlib (which
-    the card's machine lacks) gets loaded."""
+    """Every module of the package (the ctypes binding of the C++ oracle,
+    every pipeline and the sharded path among them), then chip_smoke (its
+    imports), in a fresh interpreter: neither jax, the JAX package nor
+    matplotlib (which the card's machine lacks) gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ofdm_sync_tpu_torch as pkg\n"
@@ -83,7 +84,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "assert len(mods) > 20, mods\n"
         "want = ['native', 'pipelines.sc', 'pipelines.minn', 'pipelines.minn_rtl',\n"
         "        'pipelines.park', 'pipelines.zc_freq', 'pipelines.combined_sc_minn',\n"
-        "        'pipelines.cp_fft_demo']\n"
+        "        'pipelines.cp_fft_demo', 'parallel', 'parallel.distributed',\n"
+        "        'parallel.shard']\n"
         "assert not {'ofdm_sync_tpu_torch.' + m for m in want} - set(mods), mods\n"
         "assert not bad, bad\n"
     )
