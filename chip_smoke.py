@@ -64,7 +64,20 @@ checkout, then, for each ported path:
   (1, 1) over NCCL in this process: the sharded Minn detect (overlap split
   on and off) timed against the one-shot A + B, and kernel A on a shard's
   interior view read in place (its strided mode) against `.contiguous()`
-  of the view plus the kernel.
+  of the view plus the kernel;
+* the rest of the sharded layer (phase 18): (a) four gloo ranks on
+  meshes (1, 4) and (2, 2) run the Minn-RTL metric with the blocked IIR
+  (kernel A's full mode primed, then the carry fix-up), the [A][A] metric
+  (kernel C's metric mode primed) and the Schmidl-Cox metric, each held in
+  the rank to the one-shot kernels (or the plain S&C metric) on the same
+  seeded stimulus; the Minn-RTL detect with the per-sample merge, the ZC
+  CFAR detect (kernel D's magnitude mode primed, kernel B carried) and the
+  ZC detect from IQ (kernel E, then kernel D's primed IQ mode; and with
+  the FFT convolution put in E's place as a witness), every rank's
+  table against the one-shot kernels' table (an event may differ only
+  where its gate holds a knife-edge sample); then `dryrun_multichip(4)`;
+  (b) mesh (1, 1) over NCCL: each of them timed against the one-shot
+  kernels, with its halo, kernel, fix-up or priming and merge timed alone.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
@@ -134,10 +147,12 @@ from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
 )
 from ofdm_sync_tpu_torch.ops import waveforms as WV  # noqa: E402
 from ofdm_sync_tpu_torch.ops.extract import extract_frames  # noqa: E402
+from ofdm_sync_tpu_torch.ops.metrics import sc_metric  # noqa: E402
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
 from ofdm_sync_tpu_torch.ops.windows import cumsum, running_sum_stream  # noqa: E402
 from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams  # noqa: E402
 from ofdm_sync_tpu_torch.parallel import distributed as DI  # noqa: E402
+from ofdm_sync_tpu_torch.parallel import dryrun as DR  # noqa: E402
 from ofdm_sync_tpu_torch.parallel import shard as SH  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import (  # noqa: E402
     combined_sc_minn,
@@ -2538,6 +2553,404 @@ def phase_shards(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the sharded layer (metrics, per-sample merge, ZC)
+# ---------------------------------------------------------------------------
+
+#: the sharded Schmidl-Cox metric's window at the [A][A] headline (half = L)
+REST_SC_NFFT = 2 * AA_HEADLINE["lag"]
+#: sharded metrics vs one-shot: relative to max(1, |one-shot|max)
+REST_METRIC_RTOL = 1e-6
+#: the ZC detect from IQ: an above bit may differ from the one-shot one only
+#: where |mag 2^frac - local_sum T| is within this fraction of local_sum T,
+#: or mag within it of min_corr_mag: each shard's matched filter rounds in
+#: blocks of its own (kernel E's blocks start at the shard's halo)
+ZC_IQ_KNIFE_RTOL = 1e-5
+
+
+def zc_cfar_case(dev):
+    """The ZC CFAR cell's magnitudes (`mag_stimulus`, dyadic so every local
+    sum is exact) with peaks inside shards, on the (1, 4) seams, and W + h
+    before one."""
+    B, n = ZC_HEADLINE["batch"], ZC_HEADLINE["n"]
+    S, W = n // 4, ZC_CFAR["corr_window"]
+    events = [(0, 3000), (1, S - 1), (2, 2 * S + 2), (3, 3 * S - W - ZC_EVENTS["hysteresis"]),
+              (4, n // 2 + 777), (5, S + 100)]
+    return dyadic(mag_stimulus(B, n, dev, seed=18, events=events)), events
+
+
+def cplx_err(out, ref) -> float:
+    """`rel_err` of complex tensors, over their planes."""
+    return rel_err(torch.view_as_real(out), torch.view_as_real(ref)) if out.is_complex() else \
+        rel_err(out, ref)
+
+
+def rest_rank(rank: int) -> dict:
+    """One rank of phase 18(a): the sharded metrics (held here to the
+    one-shot kernels on the same seeded stimulus: the arrays are too large
+    to send back), and the per-sample and table-merged detects (tables
+    returned); the launch counts of each sharded run alone."""
+    torch.cuda.set_device(0)
+    dev = card_device()
+    if build.build().seconds:
+        raise AssertionError(f"rank {rank} rebuilt the kernels")
+    build.library()
+    meshes = {m: SH.make_stream_mesh(*m) for m in SHARD_MESHES}
+    B, L, Q = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"]
+    metric = dict(quarter_len=Q, **KW)
+    out, counts = {}, {}
+
+    def run(key, fn):
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[key] = {**mode_launch_counts(), **launch_counts()}
+        return res
+
+    def rows(x, mesh):
+        bb = x.shape[1] // mesh.n_data
+        return x[:, mesh.data * bb: (mesh.data + 1) * bb].contiguous()
+
+    x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+    for m, mesh in meshes.items():
+        block = L // mesh.n_seq
+        sl = slice(mesh.seq * block, (mesh.seq + 1) * block)
+        blk = seq_block(x32, mesh, block)
+        corr, smooth, energy, above = run(
+            ("minn_metric", m), lambda: SH.sharded_minn_rtl_planar(blk, mesh, **metric))
+        one = F.minn_rtl_metric_planar_fused(rows(x32, mesh), **metric)
+        what = f"rank {rank} minn metric mesh {m}"
+        check_equal(corr, one.corr_positive[:, sl], what + " corr")
+        check_equal(energy, one.energy_total[:, sl], what + " energy")
+        err = rel_err(smooth, one.smooth_metric[:, sl])
+        if err > SMOOTH_RTOL:
+            raise AssertionError(f"{what}: smooth differs by {err} > {SMOOTH_RTOL}")
+        knife = check_knife(above, one.above_threshold[:, sl], one.smooth_metric[:, sl],
+                            one.energy_total[:, sl], what)
+        out["minn_metric", m] = dict(smooth_err=err, knife_bits=knife)
+        del corr, smooth, energy, above, one
+        t = run(("minn_detect", m), lambda: SH.sharded_minn_rtl_detect(
+            blk, mesh, **metric, hysteresis=HYST))
+        out["minn_detect", m] = (mesh.data, table_arrays(t))
+        del blk
+    del x32
+    torch.cuda.empty_cache()
+
+    xa, _ = aa_case(dev)
+    n, lag, N = AA_HEADLINE["n"], AA_HEADLINE["lag"], REST_SC_NFFT
+    for m, mesh in meshes.items():
+        block = n // mesh.n_seq
+        lo = mesh.seq * block
+        blk, xr = seq_block(xa, mesh, block), rows(xa, mesh)
+        P, R, M, valid = run(("aa", m), lambda: SH.sharded_aa_metric(blk, mesh, lag))
+        one = AF.aa_metric(xr, half_len=lag)
+        what = f"rank {rank} aa metric mesh {m}"
+        check_equal(P.real, one.P_re[:, lo: lo + block], what + " P_re")
+        check_equal(P.imag, one.P_im[:, lo: lo + block], what + " P_im")
+        check_equal(R, one.R[:, lo: lo + block], what + " R")
+        M1, v1 = SP._aa_normalized(one.P_re * one.P_re + one.P_im * one.P_im, one.R, lag)
+        check_equal(M, M1[:, lo: lo + block], what + " M")
+        check_equal(valid[0], v1[lo: lo + block], what + " valid")
+        del P, R, M, valid, one, M1
+        Msc, Psc, Rsc = run(("sc", m), lambda: SH.sharded_sc_metric(blk, mesh, N))
+        hi = min(lo + block, n - N + 1)  # the plain metric's last offset
+        err = 0.0
+        for b in range(xr.shape[1]):  # the plain SC metric, a stream at a time
+            ref = sc_metric(torch.complex(xr[0::2, b], xr[1::2, b]), N)
+            err = max(err, *(cplx_err(got[b, : hi - lo], want[lo:hi])
+                             for got, want in zip((Msc, Psc, Rsc), ref)))
+        if err > REST_METRIC_RTOL:
+            raise AssertionError(f"rank {rank} sc metric mesh {m}: {err} > {REST_METRIC_RTOL}")
+        out["aa_sc", m] = dict(sc_err=err)
+        del blk, xr, Msc, Psc, Rsc
+    del xa
+    torch.cuda.empty_cache()
+
+    mag, _ = zc_cfar_case(dev)
+    cfar = dict(ZC_CFAR, hysteresis=ZC_EVENTS["hysteresis"], max_events=ZC_EVENTS["max_events"])
+    for m, mesh in meshes.items():
+        mb = seq_block(mag[None], mesh, mag.shape[-1] // mesh.n_seq)[0]
+        t = run(("zc_cfar", m), lambda: SH.sharded_zc_cfar_detect(mb, mesh, **cfar))
+        out["zc_cfar", m] = (mesh.data, table_arrays(t))
+    del mag, mb
+    torch.cuda.empty_cache()
+
+    x, _, _, _ = zc_case(dev)
+    ref = pss_template(2048)[0]
+    for m, mesh in meshes.items():
+        blk = seq_block(x, mesh, x.shape[-1] // mesh.n_seq)
+        for route in ZC_ROUTES:  # kernel E, then the FFT convolution as its witness
+            with contextlib.ExitStack() as stack:
+                if route == "fft":
+                    stack.enter_context(mock.patch.object(SH, "zc_matched_filter",
+                                                          SH.fft_matched_filter))
+                t = run(("zc", m, route), lambda: SH.sharded_zc_detect(
+                    blk, mesh, reference=ref, **cfar))
+            out["zc", m, route] = (mesh.data, table_arrays(t))
+            torch.cuda.empty_cache()
+        del blk
+    return dict(out=out, counts=counts)
+
+
+#: sharded_zc_detect's matched filter in phase 18(a): kernel E (its route
+#: for this template), and the torch FFT convolution put in its place
+ZC_ROUTES = ("kernel_e", "fft")
+
+
+#: ZC detect from IQ: peak values within this fraction of the largest peak
+#: of the one-shot table (as phase 12 holds E -> D -> B to its plain version)
+ZC_IQ_PEAK_RTOL = 1e-4
+
+
+def zc_iq_events(arrays, ref, lo: int, what: str, knife) -> int:
+    """`rank_events` for the ZC detect from IQ, whose magnitudes differ
+    from the one-shot ones by each shard's FFT roundoff: events compared
+    without their peak values (an event may differ only where its gate
+    holds a knife-edge sample), then the peak values of the streams not so
+    excused within ZC_IQ_PEAK_RTOL.  Returns the streams excused."""
+    have_t = host_table(arrays)
+    n, h = have_t.count.shape[0], ZC_EVENTS["hysteresis"]
+    strip = lambda evs: [e[:3] + (None,) + e[4:] for e in evs]  # noqa: E731
+    kn = {b - lo: v for b, v in knife.items() if lo <= b < lo + n}
+    excused = compare_events([strip(table_events(have_t, b)) for b in range(n)],
+                             [strip(table_events(ref, lo + b)) for b in range(n)], h, what, kn)
+    keep = [b for b in range(n) if b not in excused]
+    got, want = have_t.peak_value[keep], ref.peak_value[lo: lo + n][keep]
+    tol = ZC_IQ_PEAK_RTOL * float(ref.peak_value.abs().max())
+    if keep and float((got - want).abs().max()) > tol:
+        raise AssertionError(f"{what}: peak values differ by more than {tol}")
+    return len(excused)
+
+
+def zc_iq_knife(mag) -> dict:
+    """Stream -> sorted indices where the one-shot magnitudes' CFAR
+    decision sits within ZC_IQ_KNIFE_RTOL of flipping (`ZC_IQ_KNIFE_RTOL`)."""
+    W = ZC_CFAR["corr_window"]
+    e_s = running_sum_stream(mag, W) * float(ZC_CFAR["threshold_value"])
+    margin = (mag * float(1 << ZC_CFAR["threshold_frac_bits"]) - e_s).abs()
+    floor = ZC_CFAR["min_corr_mag"]
+    edge = (margin <= ZC_IQ_KNIFE_RTOL * e_s.abs()) | (
+        (mag - floor).abs() <= ZC_IQ_KNIFE_RTOL * floor)
+    edge[:, :W] = False
+    b, idx = (t.cpu().numpy() for t in edge.nonzero(as_tuple=True))
+    return {int(s): idx[b == s] for s in np.unique(b)}
+
+
+def rest_timings(dev, card: str) -> dict:
+    """Phase 18(b): mesh (1, 1) over NCCL in this process, each sharded
+    function against the one-shot kernels at the same shape, and its parts
+    (halo, kernel, fix-up or priming, merge) timed alone; CUDA events
+    (`cuda_ms`), profiler in brackets (`kernel_ms`) for the whole calls."""
+    B, L, Q, h = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"], HYST
+    metric = dict(quarter_len=Q, **KW)
+    res = {}
+    DI.initialize(f"tcp://localhost:{DI.free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = SH.make_stream_mesh(1, 1)
+        zero = torch.zeros(B, device=dev)
+
+        def timed(name, sharded, one_shot):
+            res[name] = dict(ms=cuda_ms(sharded), one_shot_ms=cuda_ms(one_shot),
+                             kernel_ms=kernel_ms(sharded), one_shot_kernel_ms=kernel_ms(one_shot))
+
+        # items 3 and 5: the Minn-RTL metric with the blocked IIR, the detect
+        x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+        timed("minn_metric", lambda: SH.sharded_minn_rtl_planar(x32, mesh, **metric),
+              lambda: F.minn_rtl_metric_planar_fused(x32, **metric))
+        halo = SH._left_halo(x32, 3 * Q, mesh)
+        primed = lambda: F.minn_rtl_metric_planar_fused(  # noqa: E731
+            x32, **metric, base_index=0, hist_init=halo, carry_init=zero)
+        st = primed()
+        corr, above = st.corr_positive, SH.minn_fixup(st, 0, mesh, **KW)[1]
+        res["minn_metric"].update(
+            halo_ms=cuda_ms(lambda: SH._left_halo(x32, 3 * Q, mesh)), kernel_part_ms=cuda_ms(primed),
+            fixup_ms=cuda_ms(lambda: SH.minn_fixup(st, 0, mesh, **KW)),
+            kernel_part_bound=bound(*a_work(B, L, 4, 4, 13, hist_len=3 * Q)))
+        timed("minn_detect", lambda: SH.sharded_minn_rtl_detect(x32, mesh, **metric, hysteresis=h),
+              lambda: F.minn_rtl_detect_fused(x32, **metric, hysteresis=h))
+        res["minn_detect"]["merge_ms"] = cuda_ms(lambda: SH.cross_shard_event_merge(
+            above, corr, 0, mesh, h=h, E=8, n=L, tie_last=True, emit_unclosed=False))
+        del x32, halo, st, corr, above
+        torch.cuda.empty_cache()
+
+        # item 6: the [A][A] metric
+        xa, _ = aa_case(dev)
+        lag = AA_HEADLINE["lag"]
+        timed("aa_metric", lambda: SH.sharded_aa_metric(xa, mesh, lag),
+              lambda: AF.aa_metric(xa, half_len=lag))
+        halo = SH._left_halo(xa, 2 * lag, mesh)
+        o = AF.aa_metric(xa, half_len=lag, base_index=0, hist_init=halo)
+        res["aa_metric"].update(
+            halo_ms=cuda_ms(lambda: SH._left_halo(xa, 2 * lag, mesh)),
+            kernel_part_ms=cuda_ms(lambda: AF.aa_metric(xa, half_len=lag, base_index=0,
+                                                        hist_init=halo)),
+            m_ms=cuda_ms(lambda: SP._aa_normalized(o.P_re * o.P_re + o.P_im * o.P_im, o.R,
+                                                   lag)),
+            kernel_part_bound=bound(*c_work(B, xa.shape[-1], 4, 4, 12, hist_len=2 * lag)))
+        del xa, halo, o
+        torch.cuda.empty_cache()
+
+        # item 8: the ZC CFAR detect
+        mag, _ = zc_cfar_case(dev)
+        W, hz = ZC_CFAR["corr_window"], ZC_EVENTS["hysteresis"]
+        cfar = dict(ZC_CFAR, hysteresis=hz, max_events=ZC_EVENTS["max_events"])
+        timed("zc_cfar", lambda: SH.sharded_zc_cfar_detect(mag, mesh, **cfar),
+              lambda: ZF.zc_cfar_detect(mag, **cfar))
+        halo = SH._left_halo(mag, W + hz, mesh)
+
+        def prime():
+            tail = SP.cfar_gate(halo, **ZC_CFAR, base_index=-W - hz)[0][:, -hz:]
+            return SH._gate_from_tail(tail, 0, hz)
+
+        gate = prime()
+        kern = lambda: ZF.zc_cfar_detect(  # noqa: E731
+            mag, **cfar, base_index=0, stream_len_global=mag.shape[-1],
+            shard_init=(halo[:, hz:], gate))
+        t = kern()
+        res["zc_cfar"].update(
+            halo_ms=cuda_ms(lambda: SH._left_halo(mag, W + hz, mesh)), prime_ms=cuda_ms(prime),
+            kernel_part_ms=cuda_ms(kern), merge_ms=cuda_ms(lambda: SH.merge_shard_event_tables(
+                t, mesh, h=hz, E=ZC_EVENTS["max_events"], tie_last=False, emit_unclosed=True)),
+            d_bound=bound(*d_mag_work(*mag.shape, hist_len=W)))
+        del mag, halo, gate, t
+        torch.cuda.empty_cache()
+
+        # item 9: the ZC detect from IQ (kernel E), against E -> D -> B one-shot
+        x, taps, _, zkw = zc_case(dev)
+        ref, _, ref_norm = pss_template(2048)
+        R = len(ref)
+        timed("zc_detect", lambda: SH.sharded_zc_detect(x, mesh, reference=ref, **cfar),
+              lambda: ZF.zc_iq_cfar_detect(MF.matched_filter_ols(x, taps), x, **zkw))
+        kernel = torch.as_tensor(ref).flip(-1).conj()
+        H = W + R - 1
+        halo = SH._left_halo(x, H, mesh)
+        ext = torch.cat([halo, x], dim=-1)
+        mf = SH.zc_matched_filter(ext, kernel)
+        d_part = lambda: ZF.zc_metric(  # noqa: E731
+            mf[..., H:].contiguous(), x, ref_len=R, ref_norm=ref_norm, **ZC_CFAR, base_index=0,
+            hist_init=(mf[..., :H], halo), hysteresis=hz)
+        o = d_part()
+        res["zc_detect"].update(
+            halo_ms=cuda_ms(lambda: torch.cat([SH._left_halo(x, H, mesh), x], dim=-1)),
+            e_ms=cuda_ms(lambda: SH.zc_matched_filter(ext, kernel)),
+            d_ms=cuda_ms(d_part),
+            merge_ms=cuda_ms(lambda: SH.cross_shard_event_merge(
+                o.above, o.mag, 0, mesh, h=hz, E=ZC_EVENTS["max_events"], n=x.shape[-1],
+                tie_last=False, emit_unclosed=True)),
+            e_bound=bound(*e_work(ext, R, ext.shape[-1])),
+            d_bound=bound(*d_iq_work(x.shape[1], x.shape[-1], x.shape[-1], x.shape[0], 4,
+                                     hist_len=H)))
+        del x, ext, mf, halo, o
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for name, r in res.items():
+        parts = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in r.items()
+                          if k.endswith("_ms") and k not in ("ms", "one_shot_ms", "kernel_ms",
+                                                             "one_shot_kernel_ms"))
+        bounds = {k: f"{v[0]:.4f} {v[1]}" for k, v in r.items() if k.endswith("bound")}
+        log(f"  (b) {name}: sharded {r['ms']:.3f} ms [{r['kernel_ms']}] vs one-shot "
+            f"{r['one_shot_ms']:.3f} ms [{r['one_shot_kernel_ms']}]; parts (ms): {parts}; "
+            f"bounds (ms) {bounds}; card {card}")
+    return res
+
+
+def phase_rest(dev, card: str) -> dict:
+    """Phase 18: the rest of the sharded layer.  (a) SHARD_RANKS gloo ranks
+    sharing the card on meshes (1, 4) and (2, 2): the Minn-RTL metric with
+    the blocked IIR, the [A][A] and S&C metrics (held to the one-shot
+    kernels in each rank), the Minn-RTL detect with the per-sample merge,
+    the ZC CFAR detect and the ZC detect from IQ (kernel E and the FFT
+    convolution), each rank's table against the one-shot kernels' table
+    here; then `dryrun_multichip(4)`.  (b) mesh (1, 1) over NCCL, timed
+    (`rest_timings`)."""
+    B, L, Q, h = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"], HYST
+    log(f"== phase 18: the rest of the sharded layer: {SHARD_RANKS} gloo ranks, meshes "
+        f"{SHARD_MESHES}")
+    t0 = time.perf_counter()
+    metric = dict(quarter_len=Q, **KW)
+    res = {}
+
+    # the one-shot references on the card
+    x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
+    knife = minn_knife(F.minn_rtl_metric_planar_fused(x32, **metric), 3 * Q - 1)
+    ref_minn = cpu_table(F.minn_rtl_detect_fused(x32, **metric, hysteresis=h))
+    del x32
+    mag, cfar_events = zc_cfar_case(dev)
+    ref_cfar = cpu_table(ZF.zc_cfar_detect(mag, **ZC_CFAR))
+    check_zc_found(ref_cfar, [(b, p) for b, p in cfar_events], 1, "phase 18 zc cfar one-shot")
+    del mag
+    x, taps, zc_events, zkw = zc_case(dev)
+    n, R = x.shape[-1], len(pss_template(2048)[0])
+    zmag = ZF.zc_metric(MF.matched_filter_ols(x, taps), x, **{
+        k: zkw[k] for k in ("ref_len", "ref_norm", *ZC_CFAR)}).mag[:, :n].contiguous()
+    del x
+    ref_zc = cpu_table(ZF.zc_cfar_detect(zmag, **ZC_CFAR))
+    zknife = zc_iq_knife(zmag)
+    del zmag
+    torch.cuda.empty_cache()
+    check_zc_found(ref_zc, zc_events, R, "phase 18 zc one-shot")
+    t_ref = time.perf_counter() - t0
+
+    # (a) the ranks
+    ranks = DI.run_ranks(rest_rank, SHARD_RANKS, backend="gloo", timeout_s=600)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    knives, modes = collections.Counter(), collections.Counter()
+    need_of = {"minn_metric": ("minn_rtl_metric/full", "minn_rtl_metric/primed"),
+               "minn_detect": ("minn_rtl_metric/full", "minn_rtl_metric/primed"),
+               "aa": ("aa_metric/primed",), "sc": (),
+               "zc_cfar": ("zc_metric/primed", "gate_events/primed"),
+               "zc": ("zc_metric/primed_iq",)}
+    metric_errs = collections.defaultdict(float)
+    for r, rk in enumerate(ranks):
+        out = rk["out"]
+        for key, c in rk["counts"].items():
+            what = f"rank {r} {key}"
+            need(c, what, *need_of[key[0]],
+                 *(("matched_filter_ols",) if key[-1] == "kernel_e" else ()))
+            if key[-1] == "fft" and c.get("matched_filter_ols"):
+                raise AssertionError(f"{what}: kernel E ran on the FFT route")
+            modes.update({k: v for k, v in c.items() if "/" in k or k == "matched_filter_ols"})
+        for m in SHARD_MESHES:
+            bb = B // m[0]
+            knives["minn_metric_bits"] += out["minn_metric", m]["knife_bits"]
+            metric_errs["smooth"] = max(metric_errs["smooth"], out["minn_metric", m]["smooth_err"])
+            metric_errs["sc"] = max(metric_errs["sc"], out["aa_sc", m]["sc_err"])
+            d, arrays = out["minn_detect", m]
+            knives["minn_detect"] += rank_events(arrays, ref_minn, d * bb, h,
+                                                 f"rank {r} minn detect mesh {m}", knife)
+            d, arrays = out["zc_cfar", m]
+            rank_events(arrays, ref_cfar, d * bb, ZC_EVENTS["hysteresis"],
+                        f"rank {r} zc cfar mesh {m}")
+            tables = {}
+            for route in ZC_ROUTES:
+                d, arrays = out["zc", m, route]
+                tables[route] = arrays
+                knives[f"zc_{route}"] += zc_iq_events(arrays, ref_zc, d * bb,
+                                                      f"rank {r} zc {route} mesh {m}", zknife)
+            knives["zc_kernel_e_vs_fft"] += zc_iq_events(
+                tables["kernel_e"], host_table(tables["fft"]), 0,
+                f"rank {r} zc kernel E vs FFT mesh {m}",
+                {b - d * bb: v for b, v in zknife.items() if d * bb <= b < (d + 1) * bb})
+    line = DR.dryrun_multichip(SHARD_RANKS, device=dev)
+    t_dry = time.perf_counter() - t0 - t_ref - t_ranks
+    res.update(knife=dict(knives), metric_errs=dict(metric_errs), modes=dict(modes),
+               events=dict(minn=int(ref_minn.count.sum()), zc_cfar=int(ref_cfar.count.sum()),
+                           zc=int(ref_zc.count.sum())), dryrun=line, ref_s=t_ref, ranks_s=t_ranks,
+               dryrun_s=t_dry)
+    log(f"  (a) {SHARD_RANKS} ranks x meshes {SHARD_MESHES}: Minn metric == kernel A's full "
+        f"mode one-shot (corr, energy equal; smooth within {metric_errs['smooth']:.3g}), [A][A] "
+        f"metric == kernel C's (P, R, M equal), S&C within {metric_errs['sc']:.3g} of the plain "
+        f"metric; Minn detect, ZC CFAR, ZC from IQ (E and FFT) tables == one-shot "
+        f"({res['events']} events one-shot; knife-edge bits / streams {dict(knives)}); launches "
+        f"by mode {dict(modes)}; references {t_ref:.1f} s, ranks {t_ranks:.1f} s, dry run "
+        f"{t_dry:.1f} s")
+    res["timings"] = rest_timings(dev, card)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18: {res['seconds']:.1f} s; card {card}")
+    return res
+
+
 def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
     """Kernel E's function as one PyTorch call, `conv1d` (cuDNN, TF32 off):
     the complex full convolution of each plane pair with the taps as a
@@ -2637,12 +3050,14 @@ def main() -> int:
     lat = phase_latency(dev, card)
     fam = phase_families(dev, card)
     shards = phase_shards(dev, card)
+    rest = phase_rest(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    for name in counts}
     zc_launches = zc_chain["counts"]
     # the stream phases' mode counts, and phase 16's launches of A and B
-    modes = collections.Counter(streams["modes"]) + collections.Counter(fam["modes"])
+    modes = (collections.Counter(streams["modes"]) + collections.Counter(fam["modes"])
+             + collections.Counter(rest["modes"]))
     B, L = HEADLINE["batch"], HEADLINE["L"]
     n, Bm = ZC_HEADLINE["n"], ZC_HEADLINE["mf_batch"]
     src = "ofdm_sync_tpu_torch/kernels/csrc/"
@@ -2680,7 +3095,8 @@ def main() -> int:
          "ofdm_sync_tpu/kernels/pallas_aa.py:71, ofdm_sync_tpu/kernels/pallas_aa.py:221",
          aa_launches["aa_metric"], aa_k["max_err"], aa_head["c_ms"], aa_head["plain_c_ms"],
          c_work(B, AA_HEADLINE["n"], 4, 4, 17), None),
-        ("aa_metric[primed]", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+        ("aa_metric[primed]", "aa_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_aa.py:221, ofdm_sync_tpu/kernels/pallas_aa.py:71",
          modes.get("aa_metric/primed", 0), sk["errs"]["primed_c"], lat["c_primed_ms"],
          lat["plain_c_primed_ms"], lat["c_primed_work"], None),
         ("zc_metric", "zc_cfar.cu",
@@ -2692,10 +3108,12 @@ def main() -> int:
          modes.get("zc_metric/primed", 0), 0.0, lat["d_primed_ms"], lat["plain_d_primed_ms"],
          lat["d_primed_work"], None),
         ("zc_metric[primed IQ]", "zc_cfar.cu", "ofdm_sync_tpu/kernels/pallas_zc_tm.py:78",
-         zc_head["shard_launches"], zc_head["shard_mag_err"], zc_head["shard_d_ms"],
+         zc_head["shard_launches"] + rest["modes"].get("zc_metric/primed_iq", 0),
+         zc_head["shard_mag_err"], zc_head["shard_d_ms"],
          zc_head["plain_shard_d_ms"], zc_head["shard_work"], None),
         ("matched_filter_ols", "matched_filter.cu", "ofdm_sync_tpu/kernels/pallas_mf.py:137",
-         zc_launches["matched_filter_ols"], zc_k["mf_err"], zc_head["e_ms"],
+         zc_launches["matched_filter_ols"] + modes["matched_filter_ols"], zc_k["mf_err"],
+         zc_head["e_ms"],
          zc_head["plain_e_ms"], zc_head["e_work"], zc_head["library_e_ms"]),
     ]
     # the bounds of the other cells of PERF.md's kernel table
@@ -2721,6 +3139,7 @@ def main() -> int:
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
                       "families": {k: fam[k] for k in ("simulations", "oracle", "timings")},
                       "shards": {k: v for k, v in shards.items() if k != "view_work"},
+                      "rest": rest,
                       "other_bounds_ms": other_bounds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

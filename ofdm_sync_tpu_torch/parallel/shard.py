@@ -5,17 +5,25 @@ Two parallel axes, as in the JAX package: ``data`` (independent streams,
 no communication) and ``seq`` (the time axis of each stream, cut into
 equal blocks).  PyTorch has no ``shard_map``, so the port is SPMD: every
 rank calls the same function with its own block, channel-leading ``(C,
-B_loc, block)``, and gets back the merged table of its ``B_loc`` streams,
-the same on every rank of its ``seq`` group (JAX's ``out_specs=P("data")``).
-`StreamMesh` maps rank r to ``data = r // n_seq``, ``seq = r % n_seq``.
+B_loc, block)``, and gets back its ``B_loc`` streams' share of the result:
+a metric's own block, or the merged event table, the same on every rank of
+its ``seq`` group (JAX's ``out_specs=P("data")``).  `StreamMesh` maps rank
+r to ``data = r // n_seq``, ``seq = r % n_seq``; `shard_batch` keeps a
+rank's ``data`` slice of a whole array.
 
 The collectives, each within the rank's ``seq`` group:
 
-* halo exchange (JAX ``ppermute`` to the right neighbour): point-to-point
-  sends and receives (`dist.batch_isend_irecv`); ``seq`` 0 gets zeros;
-  int16 stays int16 on the wire;
+* halo exchange (JAX ``ppermute``): point-to-point sends and receives
+  (`dist.batch_isend_irecv`) of a block's trailing samples to the right
+  neighbour (its leading ones to the left for a forward window); the ends
+  of the stream get zeros; int16 stays int16 on the wire;
+* the blocked IIR's carry (JAX ``all_gather`` of per-shard summaries): one
+  all-gather of (prod a, final s) per stream;
 * event-table merge (JAX ``all_gather`` of one packed int32 buffer): one
   all-gather; the float32 fields ride bit for bit as int32;
+* the closed-form per-sample merge (JAX ``all_gather`` + ``pmin`` /
+  ``pmax`` / ``psum``): one all-gather of per-shard gate summaries, then
+  all-reduces (MAX, and SUM for captured channels) of the E slots;
 * frame assembly (JAX ``psum``): one all-reduce; every window sample is
   held by exactly one shard and the others add zeros, so the sum is exact.
 
@@ -27,43 +35,72 @@ the port moves data through the host for a collective.  The kernels run
 on the card either way.  NCCL (a card per rank) takes the card's tensors
 directly.
 
-Each per-shard detector runs its single-card kernels in their carried
-(shard) mode with global indices, primed from the left neighbour's halo, so
-a shard needs nothing else of its neighbours; the per-shard tables then
-merge with the seam rule of `merge_stacked_event_tables`.
+Two designs of detector, as in JAX.  The table-merged ones
+(`sharded_minn_rtl_detect_fused`, `sharded_zc_iq_detect`,
+`sharded_aa_detect_fused`, `sharded_zc_cfar_detect`) run their single-card
+kernels in the carried (shard) mode with global indices, primed from the
+left neighbour's halo, so a shard needs nothing else of its neighbours; the
+per-shard tables then merge with the seam rule of
+`merge_stacked_event_tables`.  The per-sample ones (`sharded_minn_rtl_detect`,
+`sharded_zc_detect`) compute the sharded metric's gate input and merge it
+with `cross_shard_event_merge`.  The metrics need only a left halo, except
+the Minn-RTL smoothing IIR, whose register crosses every seam: each shard
+runs it from zero and `carry_fixup` adds the exact carry
+(`blocked_linear_recurrence`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ofdm_sync_tpu_torch.kernels.aa_fused import aa_detect_fused
+from ofdm_sync_tpu_torch.kernels.aa_fused import aa_detect_fused, aa_metric
+from ofdm_sync_tpu_torch.kernels.matched_filter import MAX_TAPS, matched_filter_ols
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
     _check_input,
     _planar_view,
     metric_halo,
     minn_rtl_detect_fused,
+    minn_rtl_metric_planar_fused,
 )
-from ofdm_sync_tpu_torch.kernels.streaming import aa_metric_planar, minn_rtl_metric_planar
+from ofdm_sync_tpu_torch.kernels.streaming import (
+    _aa_normalized,
+    aa_metric_planar,
+    cfar_gate,
+    minn_rtl_metric_planar,
+)
 from ofdm_sync_tpu_torch.kernels.streaming_chunked import _gate_init
-from ofdm_sync_tpu_torch.kernels.zc_fused import zc_iq_cfar_detect, zc_tm_halo_rows
+from ofdm_sync_tpu_torch.kernels.zc_fused import (
+    default_threshold,
+    zc_cfar_detect,
+    zc_iq_cfar_detect,
+    zc_metric,
+    zc_tm_halo_rows,
+)
+from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full, fft_convolve_full_ols
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
 from ofdm_sync_tpu_torch.ops.extract import gather_windows, pad_slots
+from ofdm_sync_tpu_torch.ops.windows import (
+    linear_recurrence,
+    sliding_sum_valid,
+)
 
 
 class StreamMesh(NamedTuple):
     """The (data, seq) mesh as seen by one rank: its coordinates and the
-    process groups of its ``seq`` row and ``data`` column."""
+    process group of its ``seq`` row.  ``data`` needs no group: its slices
+    are independent streams, and no sharded function communicates across
+    them (`shard_batch` only selects a rank's slice)."""
 
     n_data: int
     n_seq: int
     data: int
     seq: int
     seq_group: object
-    data_group: object
 
     def seq_rank(self, s: int) -> int:
         """Global rank of position ``s`` of this rank's ``seq`` group."""
@@ -73,17 +110,29 @@ class StreamMesh(NamedTuple):
 def make_stream_mesh(n_data: int = 1, n_seq: int | None = None) -> StreamMesh:
     """(data, seq) mesh over the default process group, ``seq`` minor:
     rank r sits at ``data = r // n_seq``, ``seq = r % n_seq`` (default
-    ``n_seq`` = world // n_data).  Creates one group per ``seq`` row and
-    per ``data`` column, so every rank must call it, in the same order."""
+    ``n_seq`` = world // n_data).  Creates one group per ``seq`` row, so
+    every rank must call it, in the same order."""
     world, rank = dist.get_world_size(), dist.get_rank()
     if n_seq is None:
         n_seq = world // n_data
     if n_data * n_seq != world:
         raise ValueError(f"{n_data}x{n_seq} != {world} ranks")
     rows = [dist.new_group([d * n_seq + s for s in range(n_seq)]) for d in range(n_data)]
-    cols = [dist.new_group([d * n_seq + s for d in range(n_data)]) for s in range(n_seq)]
     d, s = divmod(rank, n_seq)
-    return StreamMesh(n_data, n_seq, d, s, rows[d], cols[s])
+    return StreamMesh(n_data, n_seq, d, s, rows[d])
+
+
+def shard_batch(x: torch.Tensor, mesh: StreamMesh, axis: int = 0) -> torch.Tensor:
+    """This rank's contiguous slice of ``axis`` over ``data``
+    (`shard.py:shard_batch` :1754: with one process a rank, placing an
+    array with ``P('data')`` means keeping the ``data``-th of n_data equal
+    slices; every rank of a ``seq`` row keeps the same one).  A copy, so
+    the kernels can read it."""
+    n = x.shape[axis]
+    if n % mesh.n_data:
+        raise ValueError(f"axis {axis} of {n} does not divide over {mesh.n_data} data slices")
+    b = n // mesh.n_data
+    return x.narrow(axis, mesh.data * b, b).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +208,48 @@ def _all_gather_seq(t: torch.Tensor, mesh: StreamMesh) -> torch.Tensor:
     return torch.stack(out).to(t.device)
 
 
-def _all_reduce_seq(t: torch.Tensor, mesh: StreamMesh) -> torch.Tensor:
-    """The sum of every rank's t over the seq group, on t's device (a
-    contiguous t not staged through the host holds it too)."""
+def _all_reduce_seq(t: torch.Tensor, mesh: StreamMesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``op`` (the sum by default) of every rank's t over the seq group, on
+    t's device (a contiguous t not staged through the host holds it too)."""
     buf = _wire(t, mesh.seq_group)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.seq_group)
+    dist.all_reduce(buf, op=op, group=mesh.seq_group)
     return buf.to(t.device)
+
+
+# ---------------------------------------------------------------------------
+# Blocked linear recurrence (the exact IIR across shards)
+# ---------------------------------------------------------------------------
+
+def carry_in(A_tot: torch.Tensor, s_last: torch.Tensor, mesh: StreamMesh) -> torch.Tensor:
+    """The register carried into this shard: one all-gather of each shard's
+    (prod a, final s from zero) per stream, A_tot and s_last (...), then the
+    exclusive shard-order combine ``sum_{j<s} S_j prod_{j<m<s} A_m``.
+    Every rank of the seq group must call it."""
+    g = _all_gather_seq(torch.stack([A_tot, s_last]), mesh)  # (n_seq, 2, ...)
+    carry = torch.zeros_like(s_last)
+    for j in range(mesh.seq):
+        carry = carry * g[j, 0] + g[j, 1]
+    return carry
+
+
+def carry_fixup(s_local: torch.Tensor, cum_a: torch.Tensor, mesh: StreamMesh) -> torch.Tensor:
+    """The carry fix-up of `blocked_linear_recurrence`: s_local (..., block)
+    solved from zero at the shard's start, cum_a (block,) or (..., block)
+    the running product of its a.  Returns ``s_local + carry * cum_a``
+    (`carry_in`).  cum_a underflows to exact zero within a few thousand
+    samples of a decaying IIR, and then the carry no longer reaches: that
+    is the recurrence, not a loss."""
+    A_tot = cum_a[..., -1].expand(s_local.shape[:-1])
+    return s_local + carry_in(A_tot, s_local[..., -1], mesh).unsqueeze(-1) * cum_a
+
+
+def blocked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, mesh: StreamMesh) -> torch.Tensor:
+    """Exact ``s[n] = a[n] s[n-1] + b[n]`` over the stream cut on ``seq``
+    (`shard.py:blocked_linear_recurrence` :82), ``s[-1] = 0`` at the
+    stream's start: each shard scans its (a, b) from zero
+    (`ops.windows.linear_recurrence`), then `carry_fixup`.  a, b (...,
+    block): this rank's block of the last axis."""
+    return carry_fixup(linear_recurrence(a, b), torch.cumprod(a, dim=-1), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +361,229 @@ def merge_shard_event_tables(table: GateEvents, mesh: StreamMesh, *, h: int, E: 
                 g[..., 4 * E + 1].to(torch.bool))
     return merge_stacked_event_tables(gathered, h=h, E=E, K=K, tie_last=tie_last,
                                       emit_unclosed=emit_unclosed)
+
+
+# ---------------------------------------------------------------------------
+# Closed-form event merge (per sample, across seq)
+# ---------------------------------------------------------------------------
+
+_I32_MAX = 2**31 - 1
+
+
+def cross_shard_event_merge(above: torch.Tensor, track: torch.Tensor, start: int,
+                            mesh: StreamMesh, *, h: int, E: int, n: int, tie_last: bool,
+                            emit_unclosed: bool, extras=()):
+    """Gate/peak events of a stream cut over ``seq``, from every shard's
+    per-sample gate input (`shard.py:_cross_shard_event_merge` :437).
+
+    above bool, track float32, each (B_loc, block): this rank's samples,
+    global indices ``start + arange(block)``; ``n`` the global length of
+    the close rule; ``extras`` float32 (B_loc, block) arrays read at each
+    slot's peak.  Gates are above-clusters with gaps <= h (the closed form
+    of the fused kernels).  The only state that crosses a seam is the last
+    above index and the number of clusters before it: one all-gather of
+    each shard's (last above, first above, clusters after its first) gives
+    every shard both by exclusive scans.  Each shard then reduces its gated
+    samples of the first E clusters (found by one `nonzero`, a host sync)
+    into the E slots by cluster id, one `scatter_reduce` per quantity (a
+    spare slot for the other samples would serialize millions of atomic
+    updates of one address on the card), and the slots combine across
+    ``seq`` with all-reduces: one MAX of (-start, last above, peak value)
+    in float64 (exact for int32 indices and float32 values), one MAX of
+    the peak index among the shards whose own best equals the peak value
+    (negated for tie 'first', which takes the earliest), and one SUM of
+    the extras, which only the sample at the peak index contributes.
+    Returns (GateEvents (B_loc, E), the merged extras, each (B_loc, E)),
+    the same on every rank of the seq group."""
+    B, blk = above.shape
+    dev, i32 = above.device, torch.int32
+    gi = start + torch.arange(blk, dtype=i32, device=dev)
+    la_local = torch.where(above, gi, -1).cummax(dim=-1).values
+    prev_local = torch.cat([torch.full((B, 1), -1, dtype=i32, device=dev), la_local[:, :-1]], 1)
+    first = torch.where(above, gi, _I32_MAX).amin(dim=-1)
+    rest = (above & (prev_local >= 0) & (gi - prev_local > h)).sum(dim=-1, dtype=i32)
+    g = _all_gather_seq(torch.stack([la_local[:, -1], first, rest]), mesh)  # (n_seq, 3, B)
+    carry_la_all = torch.cat([torch.full_like(g[:1, 0], -1), g[:-1, 0].cummax(dim=0).values])
+    first_new = (g[:, 1] < _I32_MAX) & ((carry_la_all < 0) | (g[:, 1] - carry_la_all > h))
+    counts = g[:, 2] + first_new
+    carry_count = (counts.cumsum(dim=0, dtype=i32) - counts)[mesh.seq][:, None]
+    carry_la = carry_la_all[mesh.seq][:, None]
+    total = counts.sum(dim=0)
+
+    prev = torch.maximum(prev_local, carry_la)
+    new_cluster = above & ((prev < 0) | (gi - prev > h))
+    cluster_id = carry_count + new_cluster.cumsum(dim=-1, dtype=i32)
+    last_above = torch.maximum(la_local, carry_la)
+    in_gate = (last_above >= 0) & (gi - last_above <= h) & (cluster_id >= 1)
+    # the gated samples of the E slots, and each one's slot b * E + cluster - 1
+    b_idx, j = (in_gate & (cluster_id <= E)).nonzero(as_tuple=True)
+    slot = b_idx * E + cluster_id[b_idx, j].long() - 1
+    gs, tr = gi[j].long(), track[b_idx, j]
+
+    def reduce(src, how, fill):
+        out = torch.full((B * E,), fill, dtype=src.dtype, device=dev)
+        return out.scatter_reduce_(0, slot, src, how).view(B, E)
+
+    start_loc = reduce(gs, "amin", _I32_MAX)
+    last_loc = reduce(torch.where(above[b_idx, j], gs, -1), "amax", -1)
+    pv_loc = reduce(tr, "amax", float("-inf"))
+    sign = 1 if tie_last else -1
+    pidx_loc = reduce(torch.where(tr == pv_loc.view(-1)[slot], sign * gs, -_I32_MAX), "amax",
+                      -_I32_MAX)
+
+    packed = torch.stack([-start_loc, last_loc, pv_loc], dim=1).to(torch.float64)
+    packed = _all_reduce_seq(packed, mesh, dist.ReduceOp.MAX)
+    gate_start, last_seg = (-packed[:, 0]).long(), packed[:, 1].long()
+    peak_val = packed[:, 2].to(torch.float32)
+    winner = (start_loc < _I32_MAX) & (pv_loc == peak_val)
+    peak_idx = sign * _all_reduce_seq(torch.where(winner, pidx_loc, -_I32_MAX), mesh,
+                                      dist.ReduceOp.MAX)
+    extra_vals = ()
+    if extras:
+        at_peak = gs == peak_idx.view(-1)[slot]
+        cols = torch.stack([reduce(torch.where(at_peak, a[b_idx, j], 0.0), "sum", 0.0)
+                            for a in extras], dim=1)
+        extra_vals = tuple(_all_reduce_seq(cols, mesh).unbind(dim=1))
+
+    exists = torch.arange(E, device=dev) < total.clamp_max(E)[:, None]
+    close_raw = last_seg + h
+    closed = (close_raw <= n - 1) & exists
+    valid = exists if emit_unclosed else exists & closed
+    table = GateEvents(
+        valid=valid, closed=closed, gate_start=torch.where(exists, gate_start, 0).to(i32),
+        gate_close=torch.where(exists, close_raw.clamp(0, n - 1), 0).to(i32),
+        peak_idx=torch.where(exists, peak_idx, 0).to(i32),
+        peak_value=torch.where(exists, peak_val, 0.0), count=valid.sum(dim=-1, dtype=i32),
+        overflow=total > E)
+    return table, tuple(torch.where(exists, v, 0.0) for v in extra_vals)
+
+
+# ---------------------------------------------------------------------------
+# Sharded metrics
+# ---------------------------------------------------------------------------
+
+def _left_halo(x: torch.Tensor, width: int, mesh: StreamMesh) -> torch.Tensor:
+    """The ``width`` samples before this rank's block (zeros at the
+    stream's start), in x's dtype; x must hold at least that many."""
+    if x.shape[-1] < width:
+        raise ValueError(f"seq shard of {x.shape[-1]} samples is shorter than its {width}-sample "
+                         "halo; use fewer seq shards")
+    return post_halos((x,), width, 0, mesh).wait()[0][0]
+
+
+def sharded_minn_rtl_planar(
+    x: torch.Tensor,
+    mesh: StreamMesh,
+    *,
+    quarter_len: int,
+    smooth_shift: int,
+    threshold_value: int,
+    threshold_frac_bits: int,
+):
+    """The Minn-RTL metric of a stream cut over ``seq``
+    (`shard.py:sharded_minn_rtl_planar` :357, channel-leading).
+
+    x: this rank's block (2*branches, B_loc, block) float32 or int16.  Per
+    shard a 3Q left halo primes kernel A's full-metric mode (its delay line
+    and windows; ``base_index`` the shard's start), with the smoothing
+    register started at zero: its smooth is then the s_local of
+    `blocked_linear_recurrence` (a = 1 - alpha from valid_from = 3Q - 1
+    on, 1 before; b = alpha corr_positive), in the kernel's rounding order
+    (sequential ``(1 - alpha) s + alpha c``, where JAX scans).
+    `minn_fixup` adds the register carried in from the shards before, and
+    recomputes ``above`` from the fixed-up smooth where the carry reaches
+    (kernel A's own is right past that and on the first shard).  On the
+    CPU kernel A's plain version runs.  Returns (corr_positive, smooth,
+    energy_total, above), each (B_loc, block)."""
+    _check_input(x)
+    Q = quarter_len
+    block, start = x.shape[-1], mesh.seq * x.shape[-1]
+    halo = _left_halo(x, 3 * Q, mesh)
+    st = minn_rtl_metric_planar_fused(
+        x, quarter_len=Q, smooth_shift=smooth_shift, threshold_value=threshold_value,
+        threshold_frac_bits=threshold_frac_bits, base_index=start, hist_init=halo,
+        carry_init=torch.zeros(x.shape[1], device=x.device))
+    smooth, above = minn_fixup(st, start, mesh, smooth_shift=smooth_shift,
+                               threshold_value=threshold_value,
+                               threshold_frac_bits=threshold_frac_bits)
+    return st.corr_positive, smooth, st.energy_total, above
+
+
+def minn_fixup(st, start: int, mesh: StreamMesh, *, smooth_shift: int, threshold_value: int,
+               threshold_frac_bits: int):
+    """`sharded_minn_rtl_planar`'s step after kernel A: the register
+    carried in (`carry_in`; a = 1 - alpha from valid_from on, 1 before)
+    and ``above`` from the fixed-up smooth.  st: kernel A's full metric of
+    the shard, register started at zero; ``start`` its global index.
+
+    The carry reaches only as far as the running product of a is above
+    zero, and (1 - alpha)^n underflows float32 within 149 ln 2 / -ln(1 -
+    alpha) samples past valid_from (~770 at shift 3).  So only a prefix of
+    the shard, twice that reach and 64 samples more, is fixed up, in place
+    in st's smooth and above; past it kernel A's own smooth and above are
+    already the recurrence's.  The stream's first shard has no carry and
+    keeps them whole.  Returns (smooth, above)."""
+    smooth, above = st.smooth_metric, st.above_threshold
+    block = smooth.shape[-1]
+    alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+    decay = -math.log1p(-alpha) if alpha < 1.0 else math.inf
+    lead = min(max(st.valid_from - start, 0), block)
+    P = min(block, lead + 2 * math.ceil(149 * math.log(2) / decay) + 64)
+    valid = start + torch.arange(P, device=smooth.device) >= st.valid_from
+    cum_a = torch.cumprod(torch.where(valid, 1.0 - alpha, 1.0).to(torch.float32), dim=-1)
+    A_tot = cum_a[-1] if P == block else torch.zeros((), device=smooth.device)
+    carry = carry_in(A_tot.expand(smooth.shape[:-1]), smooth[..., -1], mesh)
+    if mesh.seq:
+        head = smooth[..., :P] + carry.unsqueeze(-1) * cum_a
+        smooth[..., :P] = head
+        above[..., :P] = valid & (head * float(1 << threshold_frac_bits)
+                                  >= st.energy_total[..., :P] * float(threshold_value))
+    return smooth, above
+
+
+def sharded_minn_rtl_metric(rx: torch.Tensor, mesh: StreamMesh, **metric):
+    """One stream's Minn-RTL metric (`shard.py:sharded_minn_rtl_metric`
+    :176): rx, this rank's block (branches, block) complex, through
+    `sharded_minn_rtl_planar` (the same arithmetic, i*i + q*q powers).
+    Returns (corr_positive, smooth, energy_total, above), each (block,)."""
+    x = torch.stack([rx.real, rx.imag], dim=1).to(torch.float32).reshape(-1, 1, rx.shape[-1])
+    return tuple(t[0] for t in sharded_minn_rtl_planar(x, mesh, **metric))
+
+
+def sharded_aa_metric(x: torch.Tensor, mesh: StreamMesh, half_len: int):
+    """The [A][A] metric of a stream cut over ``seq``
+    (`shard.py:sharded_aa_metric` :267, channel-leading): per shard kernel
+    C's metric mode primed from a 2L left halo (the metric has no IIR, so
+    the halo alone makes each shard exact).  M is formed from P and R as
+    kernel C's detect mode forms it, ``min(|P|^2 / max(R, 1e-12)^2, 1)``
+    where ``n >= L`` and ``R > 1e-6 L`` (JAX's noise floor), else 0.
+    x: (2*branches, B_loc, block) float32 or int16.  Returns (P complex64,
+    R, M, valid), each (B_loc, block)."""
+    _check_input(x)
+    L = half_len
+    start = mesh.seq * x.shape[-1]
+    o = aa_metric(x, half_len=L, base_index=start, hist_init=_left_halo(x, 2 * L, mesh))
+    M, valid = _aa_normalized(o.P_re * o.P_re + o.P_im * o.P_im, o.R, L, start)
+    return torch.complex(o.P_re, o.P_im), o.R, M, valid.expand(o.R.shape)
+
+
+def sharded_sc_metric(x: torch.Tensor, mesh: StreamMesh, n_fft: int):
+    """The Schmidl-Cox metric of a stream cut over ``seq``
+    (`shard.py:sharded_sc_metric` :314, channel-leading): a forward window,
+    so each shard takes a RIGHT halo of n_fft samples, then computes
+    `ops.metrics.sc_metric`'s windowed sums over [block; halo] in plain
+    torch (the family has no TPU kernel).  x: (2*branches, B_loc, block).
+    Returns (M, P complex64, R), each (B_loc, block); the stream's last
+    n_fft - 1 offsets read the zeros past its end, as in JAX."""
+    _check_input(x)
+    half, block = n_fft // 2, x.shape[-1]
+    if n_fft % 2 or block < n_fft:
+        raise ValueError(f"n_fft must be even and at most the {block}-sample block, got {n_fft}")
+    ext = halo_exchange(x.to(torch.float32), 0, n_fft, mesh)
+    xc = torch.complex(ext[0::2], ext[1::2])
+    P = sliding_sum_valid(xc[..., :-half] * xc[..., half:].conj(), half).sum(dim=0)[..., :block]
+    R = sliding_sum_valid(xc.abs() ** 2, half)[..., half: half + block].sum(dim=0)
+    return P.abs() ** 2 / R.clamp_min(1e-12) ** 2, P, R
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +769,7 @@ def sharded_aa_detect_fused(
     L_, h = half_len, max(int(hysteresis), 1)
     W = -(-2 * L_ // 128) * 128 + h
     _, L, start = _seq_block(x, mesh, W, stream_len)
-    halo = post_halos((x,), W, 0, mesh).wait()[0][0].to(torch.float32)
+    halo = _left_halo(x, W, mesh).to(torch.float32)
     M = aa_metric_planar(_planar_view(halo), L_).M
     gi = start - h + torch.arange(h, device=x.device)
     gate = _gate_from_tail((M[:, -h:] >= threshold) & (gi >= L_), start, h)
@@ -473,6 +781,149 @@ def sharded_aa_detect_fused(
         table, mesh, h=h, E=max_events, tie_last=tie == "last", emit_unclosed=emit_unclosed,
         extras=(P[:, 0], P[:, 1], Mk))
     return merged, torch.stack([p_re, p_im], dim=1), m
+
+
+def sharded_minn_rtl_detect(
+    x: torch.Tensor,
+    mesh: StreamMesh,
+    *,
+    quarter_len: int,
+    smooth_shift: int,
+    threshold_value: int,
+    threshold_frac_bits: int,
+    hysteresis: int,
+    max_events: int = 8,
+    tie: str = "last",
+    emit_unclosed: bool = False,
+) -> GateEvents:
+    """Minn-RTL detection of a stream cut over ``seq`` through the
+    per-sample merge (`shard.py:sharded_minn_rtl_detect` :602):
+    `sharded_minn_rtl_planar`, then `cross_shard_event_merge` tracking
+    corr_positive.  x: (2*branches, B_loc, block) float32 or int16.
+    Returns `GateEvents` (B_loc, E), the same on every rank of the seq
+    group, equal to `ops.detect.extract_gate_events` on the whole stream
+    (valid from 3Q - 1)."""
+    corr, _, _, above = sharded_minn_rtl_planar(
+        x, mesh, quarter_len=quarter_len, smooth_shift=smooth_shift,
+        threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits)
+    return cross_shard_event_merge(
+        above, corr, mesh.seq * x.shape[-1], mesh, h=max(int(hysteresis), 1), E=max_events,
+        n=mesh.n_seq * x.shape[-1], tie_last=tie == "last", emit_unclosed=emit_unclosed)[0]
+
+
+def sharded_zc_cfar_detect(
+    corr_mag: torch.Tensor,
+    mesh: StreamMesh,
+    *,
+    corr_window: int = 2048,
+    threshold_value: int | None = None,
+    threshold_frac_bits: int = 15,
+    min_corr_mag: float = 0.3,
+    hysteresis: int = 256,
+    max_events: int = 16,
+    tie: str = "first",
+    emit_unclosed: bool = True,
+) -> GateEvents:
+    """ZC CFAR detection over matched-filter magnitudes cut over ``seq``
+    (`shard.py:sharded_zc_cfar_detect` :1365): kernel D's magnitude mode
+    primed per shard, kernel B carried, then the table merge.
+
+    corr_mag: this rank's block (B_loc, block) float32.  The halo is the
+    W + h magnitudes before the shard: its last W are kernel D's history
+    (the local sum's reach), and the CFAR decisions of its last h, from the
+    plain gate input over the halo, prime kernel B's gate.  (JAX rounds W
+    up to a multiple of 128 lanes first, a TPU layout need that the card
+    does not share.)  Returns `GateEvents` (B_loc, E), the same on every
+    rank of the seq group, equal to `zc_cfar_detect` on the whole stream."""
+    W, h = corr_window, max(int(hysteresis), 1)
+    T = default_threshold(W, threshold_frac_bits) if threshold_value is None else threshold_value
+    block, start = corr_mag.shape[-1], mesh.seq * corr_mag.shape[-1]
+    cfar = dict(corr_window=W, threshold_value=T, threshold_frac_bits=threshold_frac_bits,
+                min_corr_mag=min_corr_mag)
+    halo = _left_halo(corr_mag, W + h, mesh)
+    above_tail = cfar_gate(halo, **cfar, base_index=start - W - h)[0][:, -h:]
+    table = zc_cfar_detect(
+        corr_mag, **cfar, hysteresis=hysteresis, max_events=max_events, tie=tie,
+        emit_unclosed=True, base_index=start, stream_len_global=mesh.n_seq * block,
+        shard_init=(halo[:, h:], _gate_from_tail(above_tail, start, h)))
+    return merge_shard_event_tables(table, mesh, h=h, E=max_events, tie_last=tie == "last",
+                                    emit_unclosed=emit_unclosed)[0]
+
+
+def fft_matched_filter(ext: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """The torch FFT route of `zc_matched_filter` (`ops.channel.
+    fft_convolve_full`, overlap-save from 2^16 samples, as JAX's 'xla'
+    mode), the same output."""
+    n = ext.shape[-1]
+    xc, k = torch.complex(ext[0::2], ext[1::2]), kern.to(ext.device)
+    conv = (fft_convolve_full_ols(xc, k) if n >= 1 << 16 else fft_convolve_full(xc, k))[..., :n]
+    return torch.stack([conv.real, conv.imag], dim=1).reshape(ext.shape)
+
+
+def zc_matched_filter(ext: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """`sharded_zc_detect`'s matched filter of an extended block ext (C,
+    B, n) planar float32 with the taps kern (R,) complex64 on the host:
+    planar (C, B, n), output j the window ending at ext sample j (zeros
+    before ext).  Kernel E (on the CPU its plain version) when the template
+    fits it, R <= `MAX_TAPS`; the torch FFT convolution
+    (`fft_matched_filter`) for a longer one."""
+    if kern.shape[-1] <= MAX_TAPS:
+        return matched_filter_ols(ext, kern, ext.shape[-1])
+    return fft_matched_filter(ext, kern)
+
+
+def sharded_zc_detect(
+    x: torch.Tensor,
+    mesh: StreamMesh,
+    *,
+    reference,
+    corr_window: int = 2048,
+    threshold_value: int | None = None,
+    threshold_frac_bits: int = 15,
+    min_corr_mag: float = 0.3,
+    hysteresis: int = 256,
+    max_events: int = 16,
+    tie: str = "first",
+    emit_unclosed: bool = True,
+) -> GateEvents:
+    """ZC detection from IQ of a stream cut over ``seq`` through the
+    per-sample merge (`shard.py:sharded_zc_detect` :1611, channel-leading).
+
+    x: this rank's block (2*branches, B_loc, block) float32, rows [b0_i,
+    b0_q, b1_i, ...]; ``reference`` the complex template (R,).  Per shard,
+    over the H = W + R - 1 samples before it (JAX's halo) and its own: the
+    matched filter (`zc_matched_filter`: kernel E on the card), then kernel
+    D's primed IQ mode on the shard's mf and IQ, with the halo's mf and IQ
+    as its history (each branch normalized by its R-window energy and
+    ||ref||, the branch sum's magnitude, the CFAR gate input), then
+    `cross_shard_event_merge`.  Only the last W magnitudes of the halo
+    reach a decision of the shard, and each needs R - 1 IQ samples before
+    it, so a halo of H primes the shard exactly; the first R - 1 mf
+    outputs of the halo see zeros before it and feed no decision (D's gate
+    carry, which would need h more, is not used).  JAX's 'mxu' / 'xla' /
+    'auto' choice of matched filter is made here from the template's
+    length.  Events cover the correlation outputs k in [0, L): the 'full'
+    convolution's tail past the stream is dropped (`sharded_zc_iq_detect`
+    covers all L + R - 1 and merges tables).  Returns `GateEvents` (B_loc,
+    E), the same on every rank of the seq group, equal to `zc_cfar_detect`
+    on the one-shot normalized magnitudes truncated to L."""
+    if x.dim() != 3 or x.shape[0] % 2 or x.dtype != torch.float32:
+        raise ValueError(f"expected float32 (2*branches, B_loc, block), got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    ref = torch.as_tensor(np.asarray(reference)).to(torch.complex64)
+    R, W, h = ref.shape[-1], corr_window, max(int(hysteresis), 1)
+    H = W + R - 1
+    block, start = x.shape[-1], mesh.seq * x.shape[-1]
+    halo = _left_halo(x, H, mesh)
+    mf = zc_matched_filter(torch.cat([halo, x], dim=-1), ref.flip(-1).conj())
+    o = zc_metric(mf[..., H:].contiguous(), x.contiguous(), ref_len=R,
+                  ref_norm=float(torch.sqrt((ref.abs() ** 2).sum())), corr_window=W,
+                  threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+                  min_corr_mag=min_corr_mag, base_index=start, hist_init=(mf[..., :H], halo),
+                  hysteresis=h)
+    return cross_shard_event_merge(
+        o.above, o.mag, start, mesh, h=h, E=max_events, n=mesh.n_seq * block,
+        tie_last=tie == "last", emit_unclosed=emit_unclosed)[0]
 
 
 # ---------------------------------------------------------------------------

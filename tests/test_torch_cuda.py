@@ -798,3 +798,71 @@ def test_cuda_sharded_minn_two_ranks_on_one_card(cuda):
                                                   for f in GateEvents._fields)),
                                 f"rank {r} overlap {overlap}", 1e-6)
         assert out["modes"].get("minn_rtl_metric/strided", 0) == 2
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_rest_two_ranks_on_one_card(cuda):
+    """The per-sample sharded path over two gloo ranks sharing the card
+    (mesh (1, 2)) against the one-shot kernels: the Minn-RTL metric with
+    the blocked IIR (corr and energy equal, smooth within 1e-5 of its
+    largest value, above equal on this integer stimulus) and its detect
+    (tables equal); the ZC CFAR detect on dyadic magnitudes (tables equal);
+    the ZC detect from IQ through kernel E against D + B on the one-shot
+    magnitudes truncated to L (integer fields equal, peaks within 1e-4).
+    Kernel A's full mode, D's primed magnitude mode with B carried, E and
+    D's primed IQ mode must launch on each rank."""
+    from ofdm_sync_tpu_torch.kernels import build
+    from ofdm_sync_tpu_torch.parallel import distributed
+    from torch_shard_ranks import cuda_rest_rank
+
+    q, batch, L = 512, 4, 2 * 65_536
+    seam = L // 2
+    x = _stimulus(batch, L, q, [(0, seam - 6 * q), (1, seam - 3 * q), (2, 20_000),
+                                (3, seam + 7_000)], seed=12)
+    kw = dict(quarter_len=q, **KW, hysteresis=2)
+    rng = np.random.default_rng(12)
+    mag = np.round(0.05 * np.abs(rng.standard_normal((batch, L))) * 1024) / 1024
+    for b, pos in enumerate((seam - 1, seam + 3, 9_000, seam - 2_500)):
+        mag[b, pos - 2: pos + 3] += [0.5, 2.0, 5.0, 2.0, 0.5]
+    mag = mag.astype(np.float32)
+    cfar = dict(corr_window=2048, hysteresis=256, max_events=16)
+    ref = np.asarray(build_pss_symbol(SystemParams(n_fft=256, num_active=144, cp_len=64)))
+    zx = np.round(8 * rng.standard_normal((4, batch, L))).astype(np.float32)
+    for b in range(batch):
+        pos = seam - 128 + 64 * b
+        for c, part in enumerate((ref.real, ref.imag) * 2):
+            zx[c, b, pos: pos + len(ref)] += np.round(24 * part)
+    zkw = dict(corr_window=256, min_corr_mag=0.1, hysteresis=64, max_events=8)
+    build.library()  # the ranks load the library built here
+    ranks = distributed.run_ranks(cuda_rest_rank, 2, (x, kw, mag, cfar, zx, ref, zkw),
+                                  timeout_s=300)
+    xt = torch.from_numpy(x).to(cuda)
+    st = F.minn_rtl_metric_planar_fused(xt, quarter_len=q, **KW)
+    ref_detect = F.minn_rtl_detect_fused(xt, **kw)
+    ref_cfar = ZF.zc_cfar_detect(torch.from_numpy(mag).to(cuda), **cfar)
+    zt = torch.from_numpy(zx).to(cuda)
+    taps = torch.as_tensor(ref).flip(-1).conj()
+    zmag = ZF.zc_metric(MF.matched_filter_ols(zt, taps), zt, ref_len=len(ref),
+                        ref_norm=float(np.sqrt(np.sum(np.abs(ref) ** 2))),
+                        corr_window=256, min_corr_mag=0.1).mag[:, :L].contiguous()
+    ref_zc = ZF.zc_cfar_detect(zmag, **zkw)
+    assert (ref_detect.count >= 1).all() and (ref_cfar.count >= 1).all()
+    assert (ref_zc.count >= 1).all()
+    table = lambda a: GateEvents(*(torch.from_numpy(a[f]) for f in GateEvents._fields))  # noqa: E731
+    for r, out in enumerate(ranks):
+        sl = slice(r * L // 2, (r + 1) * L // 2)
+        corr, smooth, energy, above = (torch.from_numpy(a) for a in out["metric"])
+        assert torch.equal(corr, st.corr_positive[:, sl].cpu())
+        assert torch.equal(energy, st.energy_total[:, sl].cpu())
+        ref_s = st.smooth_metric[:, sl].cpu()
+        assert float((smooth - ref_s).abs().max()) <= 1e-5 * float(ref_s.abs().max())
+        assert torch.equal(above, st.above_threshold[:, sl].cpu())
+        assert_tables_equal(ref_detect, table(out["detect"]), f"rank {r} detect", 1e-6)
+        assert_tables_equal(ref_cfar, table(out["cfar"]), f"rank {r} cfar")
+        assert_tables_equal(ref_zc, table(out["zc"]), f"rank {r} zc", 1e-4)
+        for key, modes in (("metric", ("minn_rtl_metric/full", "minn_rtl_metric/primed")),
+                           ("detect", ("minn_rtl_metric/full",)),
+                           ("cfar", ("zc_metric/primed", "gate_events/primed")),
+                           ("zc", ("matched_filter_ols", "zc_metric/primed_iq"))):
+            got = out[key, "modes"]
+            assert all(got.get(m, 0) >= 1 for m in modes), (r, key, got)

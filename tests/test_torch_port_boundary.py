@@ -85,7 +85,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "want = ['native', 'pipelines.sc', 'pipelines.minn', 'pipelines.minn_rtl',\n"
         "        'pipelines.park', 'pipelines.zc_freq', 'pipelines.combined_sc_minn',\n"
         "        'pipelines.cp_fft_demo', 'parallel', 'parallel.distributed',\n"
-        "        'parallel.shard']\n"
+        "        'parallel.shard', 'parallel.dryrun']\n"
         "assert not {'ofdm_sync_tpu_torch.' + m for m in want} - set(mods), mods\n"
         "assert not bad, bad\n"
     )
