@@ -19,6 +19,16 @@ checkout, then, for each ported path:
   card and on the CPU, and runs the fused detector at bench.py's secondary
   size (512 x 262144 x 2 branches, L = 512, float32), timed against the
   plain version;
+* [A][A], phase 8b: the plain grid sweep (`run_grid_test_batched`) against
+  the fused one on the card for AWGN, cir1 and cir2 (every config's
+  outcome equal, CFO within 1e-3 Hz; a differing config logs its knife
+  edge and fails), both timed; kernels C + B (float32 and int16 codes)
+  against the C++ [A][A] model (`native.aa_detect_native`) on the golden
+  int12 stimulus, with and without its CFO, and on `rtl_stimulus` at
+  L = 64 and 512 (event counts and peaks equal, P at each peak the C++
+  value rounded once to float32); the `aa` simulation (`aa.main` without
+  plots, its 225-config serial grid) on the card against the CPU; and
+  `utils.profiling.kernel_stats` of C + B at the headline beside `cuda_ms`;
 * Zadoff-Chu: checks kernel D (CFAR gate input, magnitude and IQ modes, f32
   and int16 IQ) and kernel E (matched filter, against a complex128 FFT
   convolution) against their plain versions, kernel B at h = 256, drives
@@ -164,13 +174,16 @@ from ofdm_sync_tpu_torch.pipelines import (  # noqa: E402
     zc_freq,
     zc_v2,
 )
+from ofdm_sync_tpu_torch.pipelines import aa  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.aa import run_grid_test_fused  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.common import build_setup  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import (  # noqa: E402
     run_fused_rx,
     run_fused_rx_minn_rtl,
 )
+from ofdm_sync_tpu_torch.native import aa_detect_native  # noqa: E402
 from ofdm_sync_tpu_torch.testing import (  # noqa: E402
+    aa_int12_stimulus,
     aa_stimulus,
     assert_tables_equal,
     event_tuples,
@@ -179,6 +192,8 @@ from ofdm_sync_tpu_torch.testing import (  # noqa: E402
     rtl_stimulus,
     table_arrays,
 )
+from ofdm_sync_tpu_torch.utils import profiling  # noqa: E402
+from ofdm_sync_tpu_torch.utils.profiling import cuda_ms, device_ms, kernel_ms  # noqa: E402
 
 KW = dict(smooth_shift=3, threshold_value=int(0.10 * (1 << 15)), threshold_frac_bits=15)
 HYST = 2
@@ -354,53 +369,6 @@ def phase_slice(dev) -> dict:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
     log(f"  launches during the chain: {counts}")
     return counts
-
-
-def cuda_ms(fn, warmup: int = 1, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, warmup: int = 2, reps: int = 20) -> float:
-    """Device time of one fn(): the mean over `reps` back-to-back calls
-    between two CUDA events, after `warmup` calls (no host sync between
-    the calls, so the host's per-call work overlaps the device's)."""
-    for _ in range(warmup):
-        fn()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def kernel_ms(fn, reps: int = 5) -> float | None:
-    """Device time of the work one fn() puts on the card: torch.profiler's
-    device events summed, mean over `reps` calls after one warm-up.  Unlike
-    cuda_ms and device_ms it leaves out the host's share (a wrapper whose
-    host work outlasts its kernels shows that work in device_ms).  None
-    where the profiler records no device activity."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us else None
 
 
 def phase_headline(dev, card: str) -> dict:
@@ -685,6 +653,192 @@ def phase_aa_sweep(dev) -> dict:
     log(f"  card == cpu: detected {int(det.sum())}/25, timing errors "
         f"{gpu['timing_error'][det].tolist()}; launches {counts}")
     return {"counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the plain grid sweep against the fused one, kernels C + B against
+# the C++ [A][A] model, the `aa` simulation, the profiling module
+# ---------------------------------------------------------------------------
+
+AA_GRID_CHANNELS = (None, "cir1", "cir2")
+#: JAX's tolerance for its own batched / fused pair
+#: (tests/test_pipeline_parity.py:196-212)
+AA_GRID_CFO_TOL_HZ = 1e-3
+#: `aa.main`'s serial grid: 5 SNR x 3 channels x 5 full scales x 3 lengths
+AA_GRID_CONFIGS = 225
+
+
+def aa_grid_knife(channel, cfg: int, what: str) -> None:
+    """Log a differing grid config's |M - threshold| at every sample whose
+    gate bit differs between the plain metric (`ops.metrics.aa_metric`) and
+    kernel C, as a knife edge."""
+    x, _, L = aa._grid_clean_stream(1024, channel, 42, card_device())
+    iq = aa._grid_batch(x, (-5.0, 0.0, 5.0, 10.0, 15.0), (0.25, 0.5, 1.0, 1.5, 2.0), 500.0, 42)
+    rows = iq[:, cfg: cfg + 1].contiguous()
+    o = AF.aa_metric(rows, half_len=L, threshold=AA_THR)
+    st = aa.aa_metric(torch.complex(rows[0::2, 0], rows[1::2, 0]), L)
+    plain = st.valid & (st.M >= AA_THR)
+    diff = (plain != o.above[0]).nonzero().flatten()
+    margins = (st.M[diff] - AA_THR).abs().tolist()
+    log(f"  {what}: config {cfg} differs; gate bits differ at {diff[:8].tolist()}, "
+        f"|M - threshold| there {margins[:8]}")
+
+
+def aa_grid_sweeps(dev, card: str) -> dict:
+    """(a) `run_grid_test_batched` (plain PyTorch) and `run_grid_test_fused`
+    (kernels C + B) on the card, for every channel of the grid: the same
+    quantized batch, so every config's outcome must be equal and its CFO
+    within 1e-3 Hz.  Times both sweeps, and their detection alone."""
+    reset_launch_counts()
+    runs = {ch: (aa.run_grid_test_batched(channel_name=ch, device=dev),
+                 run_grid_test_fused(channel_name=ch, device=dev)) for ch in AA_GRID_CHANNELS}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if min(counts["aa_metric"], counts["gate_events"]) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    res = {"counts": counts}
+    for ch, (b, f) in runs.items():
+        what = f"sweep {ch or 'awgn'}"
+        bad = np.zeros(b["detected"].shape, bool)
+        for k in ("detected", "frame_start", "num_events", "timing_error"):
+            bad |= b[k] != f[k]
+        bad |= np.abs(b["cfo_error"] - f["cfo_error"]) > AA_GRID_CFO_TOL_HZ
+        if bad.any():
+            for cfg in np.flatnonzero(bad.reshape(-1)):
+                aa_grid_knife(ch, int(cfg), what)
+            raise AssertionError(f"{what}: batched != fused at configs "
+                                 f"{np.flatnonzero(bad.reshape(-1)).tolist()}")
+        cfo_diff = float(np.abs(b["cfo_error"] - f["cfo_error"]).max())
+        res[what] = dict(detected=int(b["detected"].sum()), max_cfo_diff_hz=cfo_diff)
+        log(f"  (a) {what}: batched == fused, {int(b['detected'].sum())}/25 detected, "
+            f"timing errors {b['timing_error'][b['detected']].tolist()}, CFO within "
+            f"{cfo_diff:.3g} Hz")
+    x, _, L = aa._grid_clean_stream(1024, "cir1", 42, dev)
+    iq = aa._grid_batch(x, (-5.0, 0.0, 5.0, 10.0, 15.0), (0.25, 0.5, 1.0, 1.5, 2.0), 500.0, 42)
+    res.update(
+        batched_sweep_ms=cuda_ms(lambda: aa.run_grid_test_batched(channel_name="cir1",
+                                                                  device=dev)),
+        fused_sweep_ms=cuda_ms(lambda: run_grid_test_fused(channel_name="cir1", device=dev)),
+        batched_detect_ms=cuda_ms(lambda: aa._batched_detect(iq, L)),
+        fused_detect_ms=cuda_ms(lambda: aa._fused_detect(iq, L)))
+    log(f"  (a) cir1 sweep: batched {res['batched_sweep_ms']:.3f} ms, fused "
+        f"{res['fused_sweep_ms']:.3f} ms; detection alone on the 4 x 25 x {iq.shape[-1]} "
+        f"batch: batched {res['batched_detect_ms']:.3f} ms, fused "
+        f"{res['fused_detect_ms']:.3f} ms; card {card}")
+    return res
+
+
+def aa_oracle_cases() -> list[tuple]:
+    """(label, planar int16 codes (branches, 2, n), L): the golden int12
+    stimulus with and without its 500 Hz CFO, and `rtl_stimulus` at L = 64
+    and 512."""
+    cases = [("golden", aa_int12_stimulus(0.0), 512),
+             ("golden 500 Hz", aa_int12_stimulus(500.0), 512)]
+    cases += [(f"rtl L={L}", rtl_stimulus(np.random.default_rng(0), L,
+                                          L=max(4000, 900 + 12 * L)), L) for L in (64, 512)]
+    return cases
+
+
+def aa_oracle(dev) -> dict:
+    """(b) kernels C + B (`aa_detect_fused` on the card, float32 and int16
+    codes) against the C++ [A][A] model: event counts and peak indices
+    equal, P at each peak the C++ integer P rounded once to float32."""
+    reset_launch_counts()
+    res = {}
+    for label, iq, L in aa_oracle_cases():
+        det = aa_detect_native(iq, half_len=L, max_events=8)
+        if det.overflow or not det.count:
+            raise AssertionError(f"{label}: the C++ model found {det.total} events")
+        want_P = np.stack([det.p_at_peak.real, det.p_at_peak.imag]).astype(np.float32)
+        for dt in (torch.float32, torch.int16):
+            table, P, _ = AF.aa_detect_fused(rtl_channel_leading(iq, dev, dt), half_len=L,
+                                             threshold=AA_THR, hysteresis=AA_HYST)
+            valid = table.valid[0].cpu().numpy()
+            peaks = table.peak_idx[0].cpu().numpy()[valid].tolist()
+            what = f"{label} {str(dt)[6:]}"
+            if int(table.count[0]) != det.count or peaks != [int(p) for p in det.peak_idx]:
+                raise AssertionError(f"{what}: C + B peaks {peaks} != the C++ model's "
+                                     f"{det.peak_idx.tolist()}")
+            got_P = P[0].cpu().numpy()[:, valid]
+            if not np.array_equal(got_P, want_P):
+                raise AssertionError(f"{what}: P at the peaks {got_P.tolist()} != the C++ "
+                                     f"P rounded to float32 {want_P.tolist()}")
+        res[label] = dict(events=det.count, peaks=[int(p) for p in det.peak_idx])
+    torch.cuda.synchronize()
+    res["counts"] = launch_counts()
+    if min(res["counts"]["aa_metric"], res["counts"]["gate_events"]) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {res['counts']}")
+    log(f"  (b) C + B == the C++ [A][A] model on {len(res) - 1} stimuli x (f32, int16): "
+        + "; ".join(f"{k} peaks {v['peaks']}" for k, v in res.items() if k != "counts"))
+    return res
+
+
+def aa_simulation(dev, card: str) -> dict:
+    """(c) `aa.main(plots=False)` (the PAPR report, the serial grid of
+    AA_GRID_CONFIGS configs, the summary) on the card and on the CPU: every config's
+    detection, timing error and event count equal, and the printed report
+    equal with its decimal numbers left out."""
+    def run(device):
+        results = []
+        grid = aa.run_grid_test
+
+        def keep(*args, **kw):
+            results.extend(grid(*args, **kw))
+            return results
+
+        t0 = time.perf_counter()
+        with mock.patch.object(aa, "run_grid_test", keep):
+            _, out = run_printed(aa.main, device=device, plots=False)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ints = [(r.detected, r.timing_error, r.num_events) for r in results]
+        return ints, re.sub(r"-?\d+\.\d+", "#", out).splitlines(), wall
+
+    card_ints, card_lines, card_s = run(dev)
+    cpu_ints, cpu_lines, cpu_s = run("cpu")
+    if len(card_ints) != AA_GRID_CONFIGS or card_ints != cpu_ints:
+        bad = [i for i, (a, b) in enumerate(zip(card_ints, cpu_ints)) if a != b]
+        raise AssertionError(f"aa simulation: card != cpu at configs {bad[:10]}")
+    if card_lines != cpu_lines:
+        bad = [(a, b) for a, b in zip(card_lines, cpu_lines) if a != b]
+        raise AssertionError(f"aa simulation: printed integers differ: {bad[:5]}")
+    detected = sum(d for d, _, _ in card_ints)
+    log(f"  (c) aa simulation, {AA_GRID_CONFIGS} configs: card == cpu ({detected} detected); wall card "
+        f"{card_s:.3f} s, cpu {cpu_s:.3f} s; card {card}")
+    return dict(detected=detected, card_s=card_s, cpu_s=cpu_s)
+
+
+def aa_profiling(dev, card: str) -> dict:
+    """(d) `utils.profiling.kernel_stats` on the [A][A] headline's C + B,
+    beside `cuda_ms` of the same call."""
+    B, n, lag = AA_HEADLINE["batch"], AA_HEADLINE["n"], AA_HEADLINE["lag"]
+    x = aa_stimulus(B, n, lag, dev, events=[(0, 3 * lag), (1, n // 3)])
+    fn = lambda v: AF.aa_detect_fused(v, half_len=lag)  # noqa: E731
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = profiling.kernel_stats(fn, x, samples_per_call=B * n, iters=10,
+                                       label="aa_detect_fused C + B")
+    line = buf.getvalue().strip()
+    ms = cuda_ms(lambda: fn(x))
+    del x
+    torch.cuda.empty_cache()
+    log(f"  (d) {line}; cuda_ms of the same call {ms:.3f} ms; card {card}")
+    return dict(kernel_stats_ms=stats["wall_s"] * 1e3 / stats["iters"],
+                samples_per_sec=stats["samples_per_sec"], cuda_ms=ms)
+
+
+def phase_aa_grid(dev, card: str) -> dict:
+    log("== phase 8b: batched vs fused grid sweep, C + B vs the C++ [A][A] model, the aa "
+        "simulation, profiling")
+    t0 = time.perf_counter()
+    res = {"sweeps": aa_grid_sweeps(dev, card), "oracle": aa_oracle(dev),
+           "simulation": aa_simulation(dev, card), "profiling": aa_profiling(dev, card)}
+    res["counts"] = {k: res["sweeps"]["counts"][k] + res["oracle"]["counts"][k]
+                     for k in res["sweeps"]["counts"]}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 8b: {res['seconds']:.1f} s; launches {res['counts']}")
+    return res
 
 
 def phase_aa_headline(dev, card: str) -> dict:
@@ -3041,6 +3195,7 @@ def main() -> int:
     aa_k = phase_aa_kernels(dev)
     aa_chain = phase_aa_chain(dev)
     aa_sweep = phase_aa_sweep(dev)
+    aa_grid = phase_aa_grid(dev, card)
     aa_head = phase_aa_headline(dev, card)
     zc_k = phase_zc_kernels(dev)
     zc_chain = phase_zc_chain(dev)
@@ -3053,7 +3208,7 @@ def main() -> int:
     rest = phase_rest(dev, card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
-                   for name in counts}
+                   + aa_grid["counts"][name] for name in counts}
     zc_launches = zc_chain["counts"]
     # the stream phases' mode counts, and phase 16's launches of A and B
     modes = (collections.Counter(streams["modes"]) + collections.Counter(fam["modes"])
@@ -3135,7 +3290,9 @@ def main() -> int:
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"e_sass": e_sass, "headline": head, "long": long, "aa_headline": aa_head,
-                      "aa_chain_ms": aa_chain["chain_ms"], "zc_headline": zc_head,
+                      "aa_chain_ms": aa_chain["chain_ms"],
+                      "aa_grid": {k: v for k, v in aa_grid.items() if k != "counts"},
+                      "zc_headline": zc_head,
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
                       "families": {k: fam[k] for k in ("simulations", "oracle", "timings")},
                       "shards": {k: v for k, v in shards.items() if k != "view_work"},

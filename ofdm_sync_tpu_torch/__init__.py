@@ -21,7 +21,10 @@ Ported so far:
   with its sweeps, and the families without a TPU kernel (D1 Schmidl-Cox,
   D2 Minn, D4 Park, D6 ZC-frequency, D8 combined S&C + Minn, plain
   PyTorch), and the ctypes binding of the C++ integer RTL models
-  (`native`), the oracle the kernels are held to.
+  (`native`), the oracle the kernels are held to;
+* the simulations' plot artifacts (`utils.report`, matplotlib imported only
+  when a plot is made), the CLI (`python -m ofdm_sync_tpu_torch`) and the
+  timing helpers of `utils.profiling`.
 
 Plain tensor code is PyTorch; the detection hot paths are the five
 hand-written CUDA kernels for the H100 in `kernels/csrc/`.  On CPU tensors
@@ -33,7 +36,12 @@ from ofdm_sync_tpu_torch.params import (  # noqa: F401
     SystemParams,
     SYS_30M72,
     SYS_AA_10M,
+    SCDetectorParams,
+    MinnDetectorParams,
     MinnRTLParams,
+    ZCParams,
+    ZCStreamingParams,
+    AADetectorParams,
 )
 from ofdm_sync_tpu_torch.kernels.streaming_chunked import (  # noqa: F401
     EPOCH_HORIZON,

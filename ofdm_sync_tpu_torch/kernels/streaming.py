@@ -45,6 +45,16 @@ from ofdm_sync_tpu_torch.ops.windows import (
 )
 
 
+def to_planar(x: torch.Tensor) -> torch.Tensor:
+    """complex (..., n) -> planar float32 (..., 2, n)."""
+    return torch.stack([x.real, x.imag], dim=-2).to(torch.float32)
+
+
+def from_planar(p: torch.Tensor) -> torch.Tensor:
+    """planar (..., 2, n) -> complex64 (..., n)."""
+    return torch.complex(p[..., 0, :].float(), p[..., 1, :].float())
+
+
 class MinnRTLFastState(NamedTuple):
     corr_positive: torch.Tensor    # (..., L) float32
     smooth_metric: torch.Tensor

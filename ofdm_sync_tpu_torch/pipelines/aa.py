@@ -1,26 +1,34 @@
 """[A][A] detector single tests and grid sweeps (port of
 `ofdm_sync_tpu.pipelines.aa`; reference sync_aa.py:648-1123).
 
-Two execution paths:
+Three execution paths:
 
 * `run_single_test` / `run_grid_test`: the serial harness (same seeds, same
   prints as the reference), detecting with `AADetector.detect`;
-* `run_grid_test_fused`: the whole SNR x full-scale grid of one channel and
-  preamble length as one planar batch, detected by ONE `aa_detect_fused`
+* `run_grid_test_batched`: the whole SNR x full-scale grid of one channel
+  and preamble length as one quantized batch, each config detected in
+  plain PyTorch (`ops.metrics.aa_metric`, `ops.detect.extract_gate_events`;
+  JAX's vmapped XLA sweep);
+* `run_grid_test_fused`: the same batch, detected by ONE `aa_detect_fused`
   call (kernels C + B on a card).
 
-The fused sweep's noise comes from a CPU `torch.Generator` seeded with
-``seed`` and is moved to the device, so one seed gives the same grid on a
-card and on the CPU.  The JAX package draws it from `jax.random` keys,
-which the port cannot reproduce: the two grids agree in distribution, and
-the tests hold the port's detection to JAX's on the same quantized batch.
-The heatmap and preamble plots and ``main()`` are not ported yet.
+The sweeps' noise comes from a CPU `torch.Generator` seeded with ``seed``
+and is moved to the device, so one seed gives the same grid on a card and
+on the CPU, and the batched and fused sweeps see the same batch.  The JAX
+package draws it from `jax.random` keys, which the port cannot reproduce:
+the two grids agree in distribution, and the tests hold the port's
+detection to JAX's on the same quantized batch.
+
+`main()` prints the preambles' PAPR, writes the preamble-design and metric
+plots, runs the serial grid, prints its summary and writes the heatmap;
+``main(plots=False)`` skips every plot and needs no matplotlib.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,6 +46,8 @@ from ofdm_sync_tpu_torch.ops.channel import (
     load_measured_cir,
     quantize_adc,
 )
+from ofdm_sync_tpu_torch.ops.detect import extract_gate_events
+from ofdm_sync_tpu_torch.ops.metrics import aa_metric
 from ofdm_sync_tpu_torch.ops.waveforms import (
     AA_PREAMBLE_LENGTHS,
     assemble_frame,
@@ -45,9 +55,11 @@ from ofdm_sync_tpu_torch.ops.waveforms import (
     build_aa_qpsk_symbol,
 )
 from ofdm_sync_tpu_torch.params import AADetectorParams, SYS_AA_10M
+from ofdm_sync_tpu_torch.pipelines.common import PLOTS_ROOT
 from ofdm_sync_tpu_torch.utils import report
 
 SYS = SYS_AA_10M
+PLOTS_DIR = PLOTS_ROOT / "sync_aa"
 #: threshold / hysteresis shared by all paths
 _GRID_PARAMS = AADetectorParams()
 
@@ -78,10 +90,13 @@ def run_single_test(
     preamble_length: int = 1024,
     cfo_hz: float = 500.0,
     seed: int = 42,
+    plot: bool = False,
+    plot_dir: Path | None = None,
     device: torch.device | str | None = None,
 ) -> TestResult:
     """One sync test: frame -> channel -> CFO -> 12-bit ADC -> detect
-    (reference sync_aa.py:669-823)."""
+    (reference sync_aa.py:669-823).  With ``plot`` and ``plot_dir``, writes
+    the config's |rx| / M / |P|^2 view there."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     channel_str = channel_name if channel_name else "awgn"
@@ -120,6 +135,10 @@ def run_single_test(
         metric_peak = float(state.M.max()) if bool(state.valid.any()) else 0.0
         num_events = 0
 
+    if plot and plot_dir is not None:
+        _plot_single(rx_q, state, result, best, det.params.threshold, true_preamble_start,
+                     channel_str, snr_db, full_scale_ratio, preamble_length, plot_dir)
+
     return TestResult(
         snr_db=snr_db,
         channel=channel_str,
@@ -137,15 +156,67 @@ def run_single_test(
     )
 
 
+def _plot_single(rx_q, state, result, best, threshold: float, true_preamble_start: int,
+                 channel_str: str, snr_db: float, full_scale_ratio: float,
+                 preamble_length: int, plot_dir: Path) -> None:
+    """One config's |rx|, M with the gates and |P|^2, each beside the true
+    and detected positions (the reference's plots/sync_aa/<channel>/)."""
+    plt = report.pyplot()
+    plot_dir.mkdir(parents=True, exist_ok=True)
+    L = preamble_length // 2
+    detected = best is not None
+    fig, axes = plt.subplots(3, 1, figsize=(12, 9), sharex=True)
+    rx_mag = np.sqrt(np.sum(np.abs(report.host(rx_q)) ** 2, axis=0))
+    axes[0].plot(rx_mag, alpha=0.7)
+    axes[0].axvline(true_preamble_start, color="g", linestyle="--", label="True start")
+    if detected:
+        axes[0].axvline(best.detected_start, color="r", linestyle=":", label="Detected")
+    axes[0].set_ylabel("|rx|")
+    axes[0].set_title(f"{channel_str.upper()}, SNR={snr_db}dB, FS={full_scale_ratio}x, L={L}")
+    axes[0].legend()
+    axes[0].grid(True, alpha=0.3)
+    axes[1].plot(report.host(state.M), label="M[n]")
+    axes[1].axhline(threshold, color="orange", linestyle="--", label="Threshold")
+    expected_peak = true_preamble_start + 2 * L - 1
+    axes[1].axvline(expected_peak, color="g", linestyle="--", label="Expected peak")
+    if detected:
+        axes[1].axvline(best.peak_index, color="r", linestyle=":")
+        for evt in result.events:
+            axes[1].axvspan(evt.gate_start, evt.gate_end, alpha=0.2, color="orange")
+    axes[1].set_ylabel("Metric")
+    axes[1].set_ylim(-0.1, 1.1)
+    axes[1].legend()
+    axes[1].grid(True, alpha=0.3)
+    axes[2].plot(np.abs(report.host(state.P)) ** 2, label="|P|^2")
+    axes[2].axvline(expected_peak, color="g", linestyle="--", label="Expected peak")
+    if detected:
+        axes[2].axvline(best.peak_index, color="r", linestyle=":", label="Detected peak")
+    axes[2].set_ylabel("|P|^2")
+    axes[2].set_xlabel("Sample")
+    axes[2].legend()
+    axes[2].grid(True, alpha=0.3)
+    plt.tight_layout()
+    stem = f"{channel_str}_snr{snr_db:+.0f}dB_fs{full_scale_ratio:.2f}"
+    plt.savefig(plot_dir / f"{stem}_L{L}.png", dpi=120)
+    if preamble_length == 1024:
+        # the reference tree carries the default-length condition under both
+        # namings (e.g. cir1_snr+10dB_fs1.00.png and ..._L512.png)
+        plt.savefig(plot_dir / f"{stem}.png", dpi=120)
+    plt.close()
+
+
 def run_grid_test(
     snr_values=(-5, 0, 5, 10, 15),
     channels=(None, "cir1", "cir2"),
     full_scale_ratios=(0.25, 0.5, 1.0, 1.5, 2.0),
     preamble_lengths=AA_PREAMBLE_LENGTHS,
     cfo_hz: float = 500.0,
+    plot_samples: bool = False,
     device: torch.device | str | None = None,
 ) -> list[TestResult]:
-    """Serial parity grid (reference sync_aa.py:829-899)."""
+    """Serial parity grid (reference sync_aa.py:829-899); with
+    ``plot_samples`` the full-scale 1.0, L = 512 configs are plotted under
+    ``plots/sync_aa/<channel>/``."""
     results: list[TestResult] = []
     total = len(snr_values) * len(channels) * len(full_scale_ratios) * len(preamble_lengths)
     report.banner("[A][A] PREAMBLE SYNCHRONIZATION - GRID TEST")
@@ -159,10 +230,11 @@ def run_grid_test(
             for snr_db in snr_values:
                 for fs_ratio in full_scale_ratios:
                     test_num += 1
+                    do_plot = plot_samples and fs_ratio == 1.0 and preamble_len == 1024
                     r = run_single_test(
                         snr_db=snr_db, channel_name=channel, full_scale_ratio=fs_ratio,
                         preamble_length=preamble_len, cfo_hz=cfo_hz, seed=42,
-                        device=device)
+                        plot=do_plot, plot_dir=PLOTS_DIR / channel_str, device=device)
                     results.append(r)
                     status = "OK " if r.detected else "MISS"
                     print(
@@ -176,7 +248,8 @@ def run_grid_test(
 
 
 # ---------------------------------------------------------------------------
-# The fused sweep: the whole grid in one detection call
+# The grid sweeps: one quantized batch, detected config by config in plain
+# PyTorch (batched) or in one detection call (fused)
 # ---------------------------------------------------------------------------
 
 def _grid_clean_stream(preamble_length: int, channel_name: str | None, seed: int, device):
@@ -241,6 +314,43 @@ def _fused_detect(iq: torch.Tensor, L: int) -> dict[str, np.ndarray]:
     }
 
 
+def _batched_single(rx_q: torch.Tensor, L: int, threshold: float, hysteresis: int
+                    ) -> tuple[torch.Tensor, ...]:
+    """One config's quantized stream (branches, n) complex64 through the
+    plain detector (JAX `_batched_single`): M >= threshold gates, the peak
+    tracked on |P|^2, the strongest event by M at its peak.  Returns 0-d
+    tensors (detected, peak index, P at the peak, M at the peak, events)."""
+    state = aa_metric(rx_q, L)
+    above = state.valid & (state.M >= threshold)
+    table = extract_gate_events(above, state.P.abs() ** 2, hysteresis=hysteresis,
+                                max_events=8, tie="first", emit_unclosed=True)
+    M_at_peak = state.M[table.peak_idx.long()] * table.valid
+    best = torch.argmax(M_at_peak)
+    peak_idx = table.peak_idx[best]
+    return table.count > 0, peak_idx, state.P[peak_idx.long()], M_at_peak[best], table.count
+
+
+def _batched_detect(iq: torch.Tensor, L: int) -> dict[str, np.ndarray]:
+    """Each config of the planar grid batch (2 * branches, ncfg, n) as
+    complex64 (exact: the quantized samples are float32), detected by
+    `_batched_single`.  Returns host arrays of shape (ncfg,)."""
+    c2, ncfg, n = iq.shape
+    planes = iq.reshape(c2 // 2, 2, ncfg, n)
+    rx_q = torch.complex(planes[:, 0], planes[:, 1]).permute(1, 0, 2)  # (ncfg, BR, n)
+    cols = [torch.stack(v) for v in zip(*(
+        _batched_single(rx_q[c], L, _GRID_PARAMS.threshold, _GRID_PARAMS.hysteresis)
+        for c in range(ncfg)))]
+    detected, peak_idx, P_peak, metric_peak, count = (v.cpu().numpy() for v in cols)
+    P_peak = P_peak.astype(np.complex128)
+    return {
+        "detected": detected,
+        "frame_start": peak_idx - 2 * L + 1,
+        "cfo_est": np.arctan2(P_peak.imag, P_peak.real) * SYS.sample_rate_hz / (2 * math.pi * L),
+        "metric_peak": metric_peak,
+        "num_events": count,
+    }
+
+
 def _grid_outputs(out, shape, true_start, cfo_hz, snr_values, full_scale_ratios):
     out = {k: np.asarray(v).reshape(shape) for k, v in out.items()}
     out["timing_error"] = out["frame_start"] - true_start
@@ -248,6 +358,28 @@ def _grid_outputs(out, shape, true_start, cfo_hz, snr_values, full_scale_ratios)
     out["snr_values"] = np.asarray(snr_values)
     out["full_scale_ratios"] = np.asarray(full_scale_ratios)
     return out
+
+
+def run_grid_test_batched(
+    preamble_length: int = 1024,
+    channel_name: str | None = None,
+    snr_values=(-5.0, 0.0, 5.0, 10.0, 15.0),
+    full_scale_ratios=(0.25, 0.5, 1.0, 1.5, 2.0),
+    cfo_hz: float = 500.0,
+    seed: int = 42,
+    device: torch.device | str | None = None,
+) -> dict[str, np.ndarray]:
+    """The plain sweep: the (snr x full_scale) grid's quantized batch (the
+    same as `run_grid_test_fused`'s for the same arguments), each config
+    detected by the plain [A][A] metric and gate/peak extraction on
+    ``device``.  Returns the same dict of (n_snr, n_fs) arrays as
+    `run_grid_test_fused`."""
+    dev = resolve_device(device)
+    x, true_start, L = _grid_clean_stream(preamble_length, channel_name, seed, dev)
+    iq = _grid_batch(x, snr_values, full_scale_ratios, cfo_hz, seed)
+    out = _batched_detect(iq, L)
+    return _grid_outputs(out, (len(snr_values), len(full_scale_ratios)), true_start,
+                         cfo_hz, snr_values, full_scale_ratios)
 
 
 def run_grid_test_fused(
@@ -337,3 +469,158 @@ def print_summary_table(results: list[TestResult]) -> None:
             print(f"  Mean:   {np.mean(errs):+.1f} Hz")
             print(f"  Std:    {np.std(errs):.1f} Hz")
             print(f"  Range:  [{np.min(errs):+.1f}, {np.max(errs):+.1f}] Hz")
+
+
+# ---------------------------------------------------------------------------
+# Plots (reference sync_aa.py:994-1069 and its preamble artifacts)
+# ---------------------------------------------------------------------------
+
+def plot_heatmaps(results: list[TestResult]) -> None:
+    """Success/fail + timing-error heatmaps per (preamble length, channel)
+    (reference sync_aa.py:994-1069)."""
+    plt = report.pyplot()
+    preamble_lengths = sorted({r.preamble_length for r in results}, reverse=True)
+    channels = sorted({r.channel for r in results})
+    snr_values = sorted({r.snr_db for r in results})
+    fs_ratios = sorted({r.full_scale_ratio for r in results})
+    n_rows, n_cols = len(preamble_lengths), len(channels)
+    fig, axes = plt.subplots(n_rows, n_cols, figsize=(6 * n_cols, 4 * n_rows))
+    axes = np.atleast_2d(axes)
+    for i, plen in enumerate(preamble_lengths):
+        for j, channel in enumerate(channels):
+            grid = np.full((len(snr_values), len(fs_ratios)), np.nan)
+            for r in results:
+                if r.preamble_length == plen and r.channel == channel:
+                    si = snr_values.index(r.snr_db)
+                    fi = fs_ratios.index(r.full_scale_ratio)
+                    grid[si, fi] = abs(r.timing_error) if r.detected else np.nan
+            ax = axes[i, j]
+            im = ax.imshow(grid, aspect="auto", origin="lower", cmap="viridis")
+            ax.set_xticks(range(len(fs_ratios)))
+            ax.set_xticklabels([f"{f:.2f}" for f in fs_ratios])
+            ax.set_yticks(range(len(snr_values)))
+            ax.set_yticklabels([f"{s:+.0f}" for s in snr_values])
+            ax.set_xlabel("Full-scale ratio")
+            ax.set_ylabel("SNR (dB)")
+            ax.set_title(f"L={plen // 2}, {channel} (|timing err|, blank=miss)")
+            fig.colorbar(im, ax=ax)
+    PLOTS_DIR.mkdir(parents=True, exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(PLOTS_DIR / "detection_heatmap.png", dpi=120)
+    plt.close(fig)
+
+
+def plot_preamble_design() -> None:
+    """Time/spectrum/autocorrelation views of the three [A][A] preamble
+    lengths (reference sync_aa.py's preamble_design.png artifact)."""
+    plt = report.pyplot()
+    fig, axes = plt.subplots(3, len(AA_PREAMBLE_LENGTHS), figsize=(5 * len(AA_PREAMBLE_LENGTHS), 9))
+    for j, total in enumerate(AA_PREAMBLE_LENGTHS):
+        pre, _, papr = build_aa_preamble(total, SYS)
+        L = total // 2
+        axes[0, j].plot(np.abs(pre), linewidth=0.7)
+        axes[0, j].set_title(f"L={L}: |x(t)|, PAPR {papr:.2f} dB")
+        spec = np.fft.fftshift(np.abs(np.fft.fft(pre, SYS.n_fft)))
+        axes[1, j].plot(spec, linewidth=0.7)
+        axes[1, j].set_title("Spectrum magnitude")
+        lag = np.correlate(pre, pre, mode="full")
+        axes[2, j].plot(np.arange(-total + 1, total), np.abs(lag) / np.abs(lag).max(),
+                        linewidth=0.7)
+        axes[2, j].set_title("Autocorrelation (note the lag-L [A][A] peak)")
+        for ax in axes[:, j]:
+            ax.grid(True, alpha=0.4)
+    PLOTS_DIR.mkdir(parents=True, exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(PLOTS_DIR / "preamble_design.png", dpi=110)
+    plt.close(fig)
+
+
+def _host_metric(sig: np.ndarray, L: int) -> tuple[np.ndarray, np.ndarray]:
+    """M and |P|^2 of a noise-free stream, from the plain metric on the CPU."""
+    st = aa_metric(torch.as_tensor(sig).to(torch.complex64), L)
+    return st.M.numpy(), np.abs(st.P.numpy()) ** 2
+
+
+def plot_metric_zoom_no_noise(total_length: int = 1024) -> None:
+    """Noise-free metric around the plateau: M, |P|^2 and the peak position
+    (reference sync_aa.py's metric_zoom_no_noise.png artifact, illustrating
+    why the peak tracks |P|^2 rather than the flat-topped M)."""
+    plt = report.pyplot()
+    L = total_length // 2
+    pre, _, _ = build_aa_preamble(total_length, SYS)
+    sig = np.concatenate([np.zeros(SYS.tx_pre_pad), pre, np.zeros(2 * L)]).astype(complex)
+    M, p_sq = _host_metric(sig, L)
+    peak = int(np.argmax(p_sq))
+    lo, hi = max(0, peak - 3 * L), min(M.size, peak + 2 * L)
+    fig, (a1, a2) = plt.subplots(2, 1, figsize=(11, 7), sharex=True)
+    a1.plot(range(lo, hi), M[lo:hi], linewidth=0.9)
+    a1.axvline(peak, linestyle="--", linewidth=0.8, color="tab:red")
+    a1.set_ylabel("M = |P|^2 / R^2")
+    a1.set_title(f"Noise-free metric zoom, L={L} (plateau top is flat)")
+    a1.grid(True, alpha=0.4)
+    a2.plot(range(lo, hi), p_sq[lo:hi] / p_sq[peak], linewidth=0.9, color="tab:orange")
+    a2.axvline(peak, linestyle="--", linewidth=0.8, color="tab:red",
+               label=f"peak @ {peak} -> frame start {peak - 2 * L + 1}")
+    a2.set_ylabel("|P|^2 (normalized)")
+    a2.set_xlabel("Sample offset")
+    a2.grid(True, alpha=0.4)
+    a2.legend()
+    PLOTS_DIR.mkdir(parents=True, exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(PLOTS_DIR / "metric_zoom_no_noise.png", dpi=110)
+    plt.close(fig)
+
+
+def plot_plateau_vs_peak(total_length: int = 1024) -> None:
+    """Why the detector peaks on |P|^2 instead of ending the M plateau:
+    with a pilot symbol following the preamble, the M plateau's trailing
+    edge is dragged out by pilot correlation, while the |P|^2 peak stays put
+    (reference sync_aa.py's plateau_vs_peak/plateau_vs_pilot artifacts)."""
+    plt = report.pyplot()
+    L = total_length // 2
+    rng = np.random.default_rng(0)
+    pre, _, _ = build_aa_preamble(total_length, SYS)
+    pilot, _ = build_aa_qpsk_symbol(rng, SYS)
+    fig, axes = plt.subplots(2, 1, figsize=(11, 7), sharex=True)
+    for ax, (label, tail) in zip(
+            axes, [("preamble then silence", np.zeros(2 * L, complex)),
+                   ("preamble then pilot symbol", pilot[: 2 * L])]):
+        sig = np.concatenate([np.zeros(SYS.tx_pre_pad), pre, tail]).astype(complex)
+        M, p_sq = _host_metric(sig, L)
+        peak = int(np.argmax(p_sq))
+        ax.plot(M, linewidth=0.8, label="M")
+        ax.plot(p_sq / max(p_sq.max(), 1e-12), linewidth=0.8, label="|P|^2 (norm)")
+        ax.axvline(peak, linestyle="--", linewidth=0.8, color="tab:red",
+                   label=f"|P|^2 peak @ {peak}")
+        ax.set_title(label)
+        ax.grid(True, alpha=0.4)
+        ax.legend()
+    axes[1].set_xlabel("Sample offset")
+    PLOTS_DIR.mkdir(parents=True, exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(PLOTS_DIR / "plateau_vs_peak_comparison.png", dpi=110)
+    plt.close(fig)
+
+
+def main(device: torch.device | str | None = None, plots: bool = True) -> None:
+    """The PAPR report, the preamble and metric plots, the serial 135-config
+    grid on ``device``, its summary and the heatmap (reference
+    sync_aa.py:1075-1123).  ``plots=False`` writes no plot."""
+    report.banner("[A][A] PREAMBLE SYNC - PAPR REPORT")
+    for total in AA_PREAMBLE_LENGTHS:
+        pre, _, papr = build_aa_preamble(total, SYS)
+        half = total // 2
+        corr = np.vdot(pre[:half], pre[half:]).real / half
+        print(f"L={half}: PAPR={papr:.2f} dB, [A][A] corr={corr:.3f}")
+    if plots:
+        plot_preamble_design()
+        plot_metric_zoom_no_noise()
+        plot_plateau_vs_peak()
+    results = run_grid_test(device=device)
+    print_summary_table(results)
+    if plots:
+        plot_heatmaps(results)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """Combined S&C-gated Minn simulation (port of
 `ofdm_sync_tpu.pipelines.combined_sc_minn`; reference
-combined_sc_min.py:272-580), without the plots.
+combined_sc_min.py:272-580).
 
-Run: ``python -m ofdm_sync_tpu_torch combined_sc_minn [--device cpu]``.
+Run: ``python -m ofdm_sync_tpu_torch combined_sc_minn [--device cpu] [--no-plots]``.
 The detector D8 has no kernel: the run is plain PyTorch on ``device`` (the
 card unless the caller asks for the CPU).
 """
@@ -22,16 +22,19 @@ from ofdm_sync_tpu_torch.utils import report
 
 SNR_DB = 10.0
 CFO_HZ = 1000.0
+DETECTOR = "combined_sc_minn"
 
 
 def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
                    device: torch.device | str | None = None) -> dict:
     """One seeded run (seed 0): Minn preamble -> channel (the first two RX
     branches of a measured CIR) -> CFO -> Minn peak in the S&C gate -> CFO /
-    LS EQ / EVM; prints the reference's report and returns its numbers."""
-    common.refuse_plots(plots_subdir)
+    LS EQ / EVM; prints the reference's report and returns its numbers.
+    With ``plots_subdir`` the reference's plots go to
+    ``plots/combined_sc_minn/<plots_subdir>/``."""
     sys = SYS_30M72
     rng = np.random.default_rng(0)
+    plots_dir = common.make_plots_dir(DETECTOR, plots_subdir) if plots_subdir else None
     det = CombinedSCMinnDetector(sys)
 
     preamble = build_minn_preamble(rng, sys, include_cp=True)
@@ -45,7 +48,38 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     expected_n_start = setup.true_cp_start + sys.cp_len
     timing_error = peak_position - expected_n_start
 
-    post = common.post_detection_chain(setup, peak_position)
+    if plots_dir is not None:
+        report.plot_metric(
+            out["M_minn"], plots_dir / "minn_metric.png",
+            f"Minn Metric with S&C Gate - {setup.channel_desc}",
+            vlines=[
+                (peak_position, "tab:red", ":", f"Minn peak @ {peak_position}"),
+                (expected_n_start, "tab:green", "--", "Expected N start"),
+            ],
+            extra_traces=[
+                (out["sc_norm"], "S&C (normalized)", "--"),
+                (out["M_smooth"], "Minn smoothed", ":"),
+            ],
+            spans=[(s, e, "S&C gate") for s, e in gate_segments],
+        )
+        report.plot_rx_and_metric(
+            setup.rx, out["M_minn"], plots_dir / "start_detection.png",
+            f"Received Magnitude and Detected Start (Combined, {setup.channel_desc})",
+            "Timing Metrics (Minn within S&C gate)",
+            vlines_top=[
+                (setup.true_cp_start, "tab:purple", "--", "Preamble CP start"),
+                (expected_n_start, "tab:green", "--", "Preamble N start"),
+                (peak_position, "tab:red", ":", "Detected start"),
+            ],
+            vlines_bottom=[
+                (peak_position, "tab:red", ":", f"Peak @ {peak_position}"),
+                (expected_n_start, "tab:green", "--", "Expected N start"),
+            ],
+            spans=[(s, e, "S&C gate") for s, e in gate_segments],
+        )
+        common.emit_standard_artifacts(setup, plots_dir, "Combined")
+
+    post = common.post_detection_chain(setup, peak_position, plots_dir, "Combined")
 
     common.print_common_header(setup, "COMBINED S&C + MINN SYNCHRONIZATION RESULTS")
     print("\nTiming Detection:")
@@ -58,6 +92,8 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
               f"(threshold >={det.sc_gate_threshold:.0%} of S&C peak)")
     common.print_cfo_block(CFO_HZ, post.cfo_est_hz)
     common.print_eq_block(post)
+    if plots_dir is not None:
+        print(f"\nPlots saved to {plots_dir.resolve()}/")
     print(report.BANNER + "\n")
     return {
         "peak": peak_position,
@@ -68,10 +104,12 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     }
 
 
-def main(device: torch.device | str | None = None) -> None:
+def main(device: torch.device | str | None = None, plots: bool = True) -> None:
     report.banner("COMBINED S&C + MINN SYNCHRONIZATION - DUAL CONDITION ANALYSIS")
-    run_simulation(channel_name="cir1", device=device)
-    run_simulation(channel_name=None, device=device)
+    run_simulation(channel_name="cir1", plots_subdir="measured_channel" if plots else None,
+                   device=device)
+    run_simulation(channel_name=None, plots_subdir="flat_awgn" if plots else None,
+                   device=device)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

@@ -1,11 +1,14 @@
-"""Shared simulation plumbing (port of `ofdm_sync_tpu.pipelines.common`
-without its plots): the stimulus + channel of one run (`SimSetup`,
-`select_cir`, `build_setup`), the receive stages after detection
-(`post_detection_chain`) and the report blocks every pipeline prints."""
+"""Shared simulation plumbing (port of `ofdm_sync_tpu.pipelines.common`):
+the stimulus + channel of one run (`SimSetup`, `select_cir`,
+`build_setup`), the receive stages after detection (`post_detection_chain`),
+the report blocks every pipeline prints and the plot artifacts every
+simulation shares (`emit_standard_artifacts`, `emit_ls_cir_artifact`),
+written under ``plots/<detector>/<subdir>/`` (`make_plots_dir`)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from ofdm_sync_tpu_torch.ops.estimate import (
     estimate_timing_offset_from_phase_slope,
     evm_rms_db,
     ls_channel_estimate,
+    reconstruct_cir_from_ls,
 )
 from ofdm_sync_tpu_torch.ops.waveforms import (
     assemble_frame,
@@ -32,11 +36,7 @@ from ofdm_sync_tpu_torch.ops.waveforms import (
 from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams
 from ofdm_sync_tpu_torch.utils import report
 
-
-def refuse_plots(plots_subdir: str | None) -> None:
-    """The simulations' plots are not ported: ``plots_subdir`` must be None."""
-    if plots_subdir is not None:
-        raise NotImplementedError("the plots are not ported; pass plots_subdir=None")
+PLOTS_ROOT = Path("plots")
 
 
 @dataclass
@@ -139,11 +139,15 @@ class PostDetection:
     xhat_aligned: np.ndarray
 
 
-def post_detection_chain(setup: SimSetup, preamble_n_start_est: int) -> PostDetection:
+def post_detection_chain(setup: SimSetup, preamble_n_start_est: int,
+                         plots_dir: Path | None = None,
+                         detector_label: str = "") -> PostDetection:
     """CFO estimate on the pilot CP -> compensate -> antenna mean -> LS
     channel estimate on the pilot -> STO from the phase slope -> equalize
     the data symbol -> EVM (reference sc.py:274-310 and its clones), on the
-    device of ``setup.rx``.  The JAX version's plots are not ported."""
+    device of ``setup.rx``.  With ``plots_dir``, also writes the phase-slope
+    and constellation plots, titled with ``detector_label``; the slope and
+    STO are the estimator's either way."""
     sys = setup.sys
     rx = setup.rx
     n_fft, cp, fs = sys.n_fft, sys.cp_len, sys.sample_rate_hz
@@ -158,6 +162,11 @@ def post_detection_chain(setup: SimSetup, preamble_n_start_est: int) -> PostDete
     pilot_td = rx_eff[pilot_cp_start + cp: pilot_cp_start + cp + n_fft]
     h_est = ls_channel_estimate(ofdm_fft_used(pilot_td, sys), used(setup.pilot_used))
     slope, sto = estimate_timing_offset_from_phase_slope(h_est, n_fft, sys.num_active)
+    if plots_dir is not None:
+        report.plot_phase_slope(
+            h_est, plots_dir / "phase_slope_sto.png",
+            f"Residual Timing From Phase Slope ({detector_label}, {setup.channel_desc})",
+            n_fft, sys.num_active)
 
     data_cp_start = pilot_cp_start + cp + n_fft
     data_td = rx_eff[data_cp_start + cp: data_cp_start + cp + n_fft]
@@ -165,6 +174,10 @@ def post_detection_chain(setup: SimSetup, preamble_n_start_est: int) -> PostDete
     data_used = used(setup.data_used)
     xhat_aligned, gain = align_complex_gain(xhat, data_used)
     evm, evm_db = evm_rms_db(xhat_aligned, data_used)
+    if plots_dir is not None:
+        report.plot_constellation(
+            xhat_aligned, setup.data_used, plots_dir / "constellation.png",
+            f"Equalized Data Constellation ({detector_label}, {setup.channel_desc})")
     return PostDetection(
         cfo_est_hz=cfo_est,
         h_est=h_est.cpu().numpy(),
@@ -175,6 +188,28 @@ def post_detection_chain(setup: SimSetup, preamble_n_start_est: int) -> PostDete
         evm_db=float(evm_db),
         xhat_aligned=xhat_aligned.cpu().numpy(),
     )
+
+
+def emit_standard_artifacts(setup: SimSetup, plots_dir: Path, detector_label: str) -> None:
+    """tx/rx time series + channel CIR plots shared by every sim."""
+    report.plot_time_series(
+        setup.tx, "Transmit Frame (with Leading Zeros)", plots_dir / "tx_frame_time.png")
+    report.plot_time_series(
+        setup.rx, f"Received Frame After Channel ({setup.channel_desc})",
+        plots_dir / "rx_frame_time.png")
+    if setup.cir is not None:
+        report.plot_time_series(
+            setup.cir, f"Measured Channel CIR ('{setup.channel_name}')",
+            plots_dir / "channel_cir.png")
+
+
+def emit_ls_cir_artifact(setup: SimSetup, post: PostDetection, timing_error: int,
+                         plots_dir: Path, detector_label: str) -> None:
+    ls_cir = reconstruct_cir_from_ls(torch.from_numpy(post.h_est), setup.sys.n_fft,
+                                     setup.sys.num_active)
+    report.plot_ls_cir(
+        ls_cir, setup.cir, setup.channel_peak_offset, timing_error,
+        plots_dir / "ls_cir.png", f"LS-Derived CIR ({detector_label}, {setup.channel_desc})")
 
 
 def print_common_header(setup: SimSetup, title: str) -> None:
@@ -211,3 +246,9 @@ def print_eq_block(post: PostDetection) -> None:
         f"{abs(post.gain):.3f}, {np.angle(post.gain):.3f} rad"
     )
     print(f"  EVM RMS: {100 * post.evm_rms:.2f}%  ({post.evm_db:.2f} dB)")
+
+
+def make_plots_dir(detector: str, subdir: str) -> Path:
+    d = PLOTS_ROOT / detector / subdir
+    d.mkdir(parents=True, exist_ok=True)
+    return d

@@ -1,14 +1,17 @@
 """CP / FFT-window timing demo (port of `ofdm_sync_tpu.pipelines.cp_fft_demo`;
-reference ofdm_cp_fft_demo.py:1-125), without the plots.
+reference ofdm_cp_fft_demo.py:1-125).
 
 Two back-to-back QPSK OFDM symbols (N = 512, CP = 128); symbol 0's FFT
 window is taken aligned, 16 samples early (inside the CP: a pure phase ramp
 across the subcarriers) and 16 samples late (into the next symbol: a ramp
 plus ISI).  The timing offset comes from the slope of the unwrapped phase
 of each window's spectrum over the aligned one: ``STO = -slope N / (2
-pi)``.  All four windows go through one batched FFT on ``device``.
+pi)``.  All four windows go through one batched FFT on ``device``.  With
+plots on, the four constellations and the two phase slopes are written to
+``plots/cp_fft_demo/``; as in the JAX demo, a failure to plot is reported
+and skipped.
 
-Run: ``python -m ofdm_sync_tpu_torch cp_fft_demo [--device cpu]``.
+Run: ``python -m ofdm_sync_tpu_torch cp_fft_demo [--device cpu] [--no-plots]``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ofdm_sync_tpu_torch.device import resolve_device
 from ofdm_sync_tpu_torch.ops.estimate import unwrap
+from ofdm_sync_tpu_torch.pipelines.common import PLOTS_ROOT
 from ofdm_sync_tpu_torch.utils import report
 
 N_FFT = 512
@@ -90,7 +94,7 @@ def run_demo(rng: np.random.Generator | None = None,
     )
 
 
-def main(device: torch.device | str | None = None) -> None:
+def main(device: torch.device | str | None = None, plots: bool = True) -> None:
     report.banner("CP/FFT WINDOW TIMING DEMO (N=512, CP=128)")
     res = run_demo(device=device)
     print(f"FFT window {EARLY_SAMPLES} samples early: "
@@ -100,6 +104,49 @@ def main(device: torch.device | str | None = None) -> None:
     print(f"FFT window {LATE_SAMPLES} samples late:  "
           f"STO estimate = {res.sto_est_late:+.2f} samples "
           f"(expected {-LATE_SAMPLES:+d})")
+    if plots:
+        plot_demo(res)
+
+
+def plot_demo(res: DemoResult) -> None:
+    """constellations.png and phase_slope.png under plots/cp_fft_demo/
+    (headless-safe, as the JAX demo: a failure is printed, not raised)."""
+    try:
+        plt = report.pyplot()
+        plots = PLOTS_ROOT / "cp_fft_demo"
+        plots.mkdir(parents=True, exist_ok=True)
+        fig, axes = plt.subplots(2, 2, figsize=(12, 8))
+        titles = {
+            "sym0": "Symbol 0 - perfect alignment",
+            "early": f"Symbol 0 - {EARLY_SAMPLES} samples early",
+            "late": f"Symbol 0 - {LATE_SAMPLES} samples late",
+            "sym1": "Symbol 1 - perfect alignment",
+        }
+        for ax, key in zip(axes.flatten(), ["sym0", "early", "late", "sym1"]):
+            s = res.spectra[key]
+            ax.scatter(s.real, s.imag, s=8)
+            ax.set_title(titles[key])
+            ax.set_aspect("equal", "box")
+            ax.grid(True)
+        fig.tight_layout()
+        fig.savefig(plots / "constellations.png", dpi=110)
+        plt.close(fig)
+
+        fig2, axp = plt.subplots(2, 1, figsize=(10, 6), sharex=True)
+        k = np.arange(N_FFT)
+        for ax, ph, sto, lbl in (
+            (axp[0], res.phase_early, res.sto_est_early, "early"),
+            (axp[1], res.phase_late, res.sto_est_late, "late"),
+        ):
+            ax.plot(k, ph, ".", markersize=3)
+            ax.set_title(f"Phase slope - {lbl} window (STO ~ {sto:.2f})")
+            ax.grid(True)
+        fig2.tight_layout()
+        fig2.savefig(plots / "phase_slope.png", dpi=110)
+        plt.close(fig2)
+        print(f"Artifacts written to {plots}/")
+    except Exception as e:  # headless-safe, as the JAX demo
+        print(f"(plot emission skipped: {e})")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Zadoff-Chu time-domain matched-filter simulation (port of
-`ofdm_sync_tpu.pipelines.zc`; reference zc.py:57-283), without the plots.
+`ofdm_sync_tpu.pipelines.zc`; reference zc.py:57-283).
 
-Run: ``python -m ofdm_sync_tpu_torch zc [--device cpu]``.  The detector D5
+Run: ``python -m ofdm_sync_tpu_torch zc [--device cpu] [--no-plots]``.  The detector D5
 has no kernel: the run is plain PyTorch on ``device`` (the card unless the
 caller asks for the CPU).
 """
@@ -20,17 +20,18 @@ from ofdm_sync_tpu_torch.utils import report
 
 SNR_DB = 10.0
 CFO_HZ = 1000.0
+DETECTOR = "zc"
 
 
 def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
                    device: torch.device | str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> ZC
     matched filter -> CFO / LS EQ / EVM; prints the reference's report and
-    returns its numbers.  ``plots_subdir`` must be None: plots are not
-    ported."""
-    common.refuse_plots(plots_subdir)
+    returns its numbers.  With ``plots_subdir`` the reference's
+    plots go to ``plots/zc/<plots_subdir>/``."""
     sys = SYS_30M72
     rng = np.random.default_rng(0)
+    plots_dir = common.make_plots_dir(DETECTOR, plots_subdir) if plots_subdir else None
     det = ZCTimeDetector(sys)
 
     # preamble = PSS symbol WITHOUT CP (reference zc.py:78)
@@ -47,7 +48,29 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     timing_error = detected_start - true_start
     peak_error = peak_index - expected_peak
 
-    post = common.post_detection_chain(setup, detected_start)
+    if plots_dir is not None:
+        report.plot_metric(
+            out["corr_mag"], plots_dir / "correlation.png",
+            f"Cross-correlation with ZC PSS Reference ({setup.channel_desc})",
+            vlines=[(peak_index, "tab:red", "--", f"Peak @ {peak_index}")],
+            xlabel="Sample index", ylabel="|normalized corr|",
+        )
+        report.plot_rx_and_metric(
+            setup.rx, out["corr_mag"], plots_dir / "start_detection.png",
+            f"Received Magnitude with Start Detection (ZC, {setup.channel_desc})",
+            "PSS Correlation Alignment",
+            vlines_top=[
+                (true_start, "tab:green", "--", "Expected ZC start"),
+                (detected_start, "tab:red", ":", "Detected ZC start"),
+            ],
+            vlines_bottom=[
+                (peak_index, "tab:red", ":", "Peak index"),
+                (expected_peak, "tab:green", "--", "Expected peak"),
+            ],
+        )
+        common.emit_standard_artifacts(setup, plots_dir, "ZC")
+
+    post = common.post_detection_chain(setup, detected_start, plots_dir, "ZC")
 
     common.print_common_header(setup, "ZADOFF-CHU SYNCHRONIZATION RESULTS")
     print("\nTiming Detection:")
@@ -59,6 +82,8 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     print(f"  Peak index error: {peak_error} samples")
     common.print_cfo_block(CFO_HZ, post.cfo_est_hz)
     common.print_eq_block(post)
+    if plots_dir is not None:
+        print(f"\nPlots saved to {plots_dir.resolve()}/")
     print(report.BANNER + "\n")
     return {
         "peak_index": peak_index,
@@ -71,10 +96,12 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     }
 
 
-def main(device: torch.device | str | None = None) -> None:
+def main(device: torch.device | str | None = None, plots: bool = True) -> None:
     report.banner("ZADOFF-CHU SYNCHRONIZATION - DUAL CONDITION ANALYSIS")
-    run_simulation(channel_name="cir1", device=device)
-    run_simulation(channel_name=None, device=device)
+    run_simulation(channel_name="cir1", plots_subdir="measured_channel" if plots else None,
+                   device=device)
+    run_simulation(channel_name=None, plots_subdir="flat_awgn" if plots else None,
+                   device=device)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

@@ -1,12 +1,12 @@
 """ZC streaming CFAR simulation (port of `ofdm_sync_tpu.pipelines.zc_v2`;
-reference zc_v2.py:519-787), without the plots.
+reference zc_v2.py:519-787).
 
 The run detects with `ZCStreamingDetector.detect`, the reference path in
 plain PyTorch, on ``device`` (the card unless the caller asks for the
 CPU), as the JAX pipeline does; the fused paths (`detect_fused`,
 `detect_fused_iq`, kernels D, E and B on a card) give the same events.
 
-Run: ``python -m ofdm_sync_tpu_torch zc_v2 [--device cpu]``.
+Run: ``python -m ofdm_sync_tpu_torch zc_v2 [--device cpu] [--no-plots]``.
 """
 
 from __future__ import annotations
@@ -23,17 +23,18 @@ from ofdm_sync_tpu_torch.utils import report
 
 SNR_DB = 10.0
 CFO_HZ = 1000.0
+DETECTOR = "zc_v2"
 
 
 def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
                    device: torch.device | str | None = None) -> dict:
     """One seeded run (seed 0): PSS without CP -> channel -> CFO -> CFAR
     detection, strongest event -> CFO / LS EQ / EVM; prints the reference's
-    report and returns its numbers.  ``plots_subdir`` must be None: plots
-    are not ported."""
-    common.refuse_plots(plots_subdir)
+    report and returns its numbers.  With ``plots_subdir`` the reference's
+    plots go to ``plots/zc_v2/<plots_subdir>/``."""
     sys = SYS_30M72
     rng = np.random.default_rng(0)
+    plots_dir = common.make_plots_dir(DETECTOR, plots_subdir) if plots_subdir else None
     params = ZCStreamingParams()
     det = ZCStreamingDetector(sys, params=params)
 
@@ -54,7 +55,10 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
         detected_start = max(0, peak_index - sys.n_fft + 1)
     timing_error = detected_start - true_start
 
-    post = common.post_detection_chain(setup, detected_start)
+    if plots_dir is not None:
+        plot_detection(result, setup, params, peak_index, expected_peak, plots_dir)
+
+    post = common.post_detection_chain(setup, detected_start, plots_dir, "ZC v2")
 
     common.print_common_header(setup, "ZC V2 DETECTION RESULTS")
     print("Detection Parameters:")
@@ -84,6 +88,8 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
               "strongest selected")
     common.print_cfo_block(CFO_HZ, post.cfo_est_hz)
     common.print_eq_block(post)
+    if plots_dir is not None:
+        print(f"\nPlots saved to {plots_dir.resolve()}/")
     print(report.BANNER + "\n")
     return {
         "num_events": len(result.events),
@@ -96,10 +102,50 @@ def run_simulation(channel_name: str | None, plots_subdir: str | None = None,
     }
 
 
-def main(device: torch.device | str | None = None) -> None:
+def plot_detection(result, setup: common.SimSetup, params: ZCStreamingParams, peak_index: int,
+                   expected_peak: int, plots_dir) -> None:
+    """detection.png (correlation with the gate spans), correlation_zoom.png
+    (the correlation around the peak beside the adaptive threshold) and the
+    standard artifacts."""
+    state = result.state
+    corr_mag = report.host(state["corr_mag"])
+    report.plot_metric(
+        corr_mag, plots_dir / "detection.png",
+        f"ZC Matched Filter Correlation ({setup.channel_desc})",
+        vlines=[
+            (peak_index, "tab:red", ":", f"Peak @ {peak_index}"),
+            (expected_peak, "tab:green", "--", f"Expected @ {expected_peak}"),
+        ],
+        spans=[(e.gate_start, e.gate_end, "gate") for e in result.events],
+        xlabel="Sample index", ylabel="|correlation|",
+    )
+    zoom_half = 500
+    z0, z1 = max(0, peak_index - zoom_half), min(corr_mag.size, peak_index + zoom_half)
+    plt = report.pyplot()
+    fig, ax = plt.subplots(figsize=(10, 4))
+    x = np.arange(z0, z1)
+    ax.plot(x, corr_mag[z0:z1], label="|corr|", color="tab:blue")
+    thresh = (report.host(state["local_sum"])[z0:z1] * params.threshold_value
+              / float(1 << params.threshold_frac_bits))
+    ax.plot(x, thresh, label="Adaptive threshold", color="tab:orange", linestyle="--")
+    ax.axvline(peak_index, color="tab:red", linestyle=":", label="Detected peak")
+    ax.axvline(expected_peak, color="tab:green", linestyle="--", label="Expected peak")
+    ax.axhline(params.min_corr_mag, color="gray", linestyle=":", alpha=0.5, label="Min threshold")
+    ax.legend(loc="upper right")
+    ax.grid(True, alpha=0.3)
+    ax.set_title(f"Zoomed Correlation ({setup.channel_desc})")
+    fig.tight_layout()
+    fig.savefig(plots_dir / "correlation_zoom.png", dpi=150)
+    plt.close(fig)
+    common.emit_standard_artifacts(setup, plots_dir, "ZC v2")
+
+
+def main(device: torch.device | str | None = None, plots: bool = True) -> None:
     report.banner("ZC V2 DETECTION - FPGA-FRIENDLY ADAPTIVE THRESHOLD")
-    run_simulation(channel_name=None, device=device)
-    run_simulation(channel_name="cir1", device=device)
+    run_simulation(channel_name=None, plots_subdir="flat_awgn" if plots else None,
+                   device=device)
+    run_simulation(channel_name="cir1", plots_subdir="measured_channel" if plots else None,
+                   device=device)
     report.banner("ALL SIMULATIONS COMPLETE")
 
 

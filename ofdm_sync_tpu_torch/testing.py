@@ -61,6 +61,28 @@ def aa_stimulus(batch: int, n: int, half_len: int, device, *, seed: int = 0,
     return x
 
 
+#: the [A][A] golden vectors' stimulus (reference
+#: docs/aa_preamble_sync_design.md section 12): sample rate, pad before the
+#: 1024-sample preamble, zeros after it, the int12 scale
+GOLDEN_FS_HZ, GOLDEN_PRE_PAD, GOLDEN_TAIL, GOLDEN_SCALE = 15_360_000.0, 500, 700, 1024.0
+
+
+def aa_int12_stimulus(cfo_hz: float = 0.0) -> np.ndarray:
+    """Planar int16 codes (1 branch, 2, 2224) of the C++ [A][A] model's
+    golden stimulus (after tests/test_native_aa.py:_int12_stimulus):
+    [500 zeros | the 1024-sample [A][A] preamble | 700 zeros], a CFO tone
+    of ``cfo_hz`` from sample 0 at 15.36 MHz, each part rounded to
+    round(x * 1024)."""
+    from ofdm_sync_tpu_torch.ops.waveforms import build_aa_preamble
+
+    stim = np.concatenate([np.zeros(GOLDEN_PRE_PAD), build_aa_preamble(1024)[0],
+                           np.zeros(GOLDEN_TAIL)]).astype(complex)
+    if cfo_hz:
+        stim = stim * np.exp(2j * np.pi * cfo_hz * np.arange(stim.size) / GOLDEN_FS_HZ)
+    q = np.round(stim.real * GOLDEN_SCALE) + 1j * np.round(stim.imag * GOLDEN_SCALE)
+    return np.stack([q.real, q.imag]).astype(np.int16)[None]
+
+
 def rtl_stimulus(rng: np.random.Generator, quarter_len: int, *, snr_db: float = 10.0,
                  L: int = 4000, positions=(900,)) -> np.ndarray:
     """Planar int16 ADC codes (2 branches, 2, L) for the C++ integer oracle,

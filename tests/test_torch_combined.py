@@ -87,7 +87,7 @@ def test_simulation_and_report_match_jax(channel, capsys):
 
 
 def test_cli(capsys):
-    assert t_main(["combined_sc_minn", "--device", "cpu"]) == 0
+    assert t_main(["combined_sc_minn", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Detected Minn peak at d=2064" in out and "S&C gate window" in out
     assert "ALL SIMULATIONS COMPLETE" in out

@@ -159,7 +159,7 @@ def test_block_length_sweep_matches_jax():
 
 
 def test_cli(capsys):
-    assert t_main(["minn", "--device", "cpu"]) == 0
+    assert t_main(["minn", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Detected Minn peak at d=2065" in out and "Detected Minn peak at d=1856" in out
     assert "BLOCK LENGTH COMPARISON - FLAT AWGN" in out and "ALL SIMULATIONS COMPLETE" in out

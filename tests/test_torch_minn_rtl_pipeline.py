@@ -68,7 +68,7 @@ def test_q_comparison_matches_jax():
 
 
 def test_cli(capsys):
-    assert t_main(["minn_rtl", "--device", "cpu"]) == 0
+    assert t_main(["minn_rtl", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Event 0: peak=4593 detected=4593 expected=4509 error=84 samples" in out
     assert "Event 1: peak=19768 detected=19768 expected=19769 error=-1 samples" in out

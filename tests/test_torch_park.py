@@ -142,7 +142,7 @@ def test_report_matches_jax(capsys):
 
 
 def test_cli(capsys):
-    assert t_main(["park", "--device", "cpu"]) == 0
+    assert t_main(["park", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Detected center index: 8619" in out and "Detected center index: 2616" in out
     assert "ALL PARK SIMULATIONS COMPLETE" in out

@@ -164,7 +164,7 @@ def test_cp_fft_demo_matches_jax(capsys):
     assert round(t.sto_est_early) == 16 and round(t.sto_est_late) == -16
     for key in ("sym0", "sym1", "early", "late"):
         np.testing.assert_allclose(t.spectra[key], j.spectra[key], rtol=0, atol=1e-4)
-    assert t_main(["cp_fft_demo", "--device", "cpu"]) == 0
+    assert t_main(["cp_fft_demo", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "STO estimate = +16.00 samples" in out and "STO estimate = -16.00 samples" in out
 

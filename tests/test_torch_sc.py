@@ -26,6 +26,7 @@ from ofdm_sync_tpu.ops.waveforms import build_sc_preamble as j_build  # noqa: E4
 from ofdm_sync_tpu.params import SystemParams  # noqa: E402
 from ofdm_sync_tpu.pipelines import sc as jsc  # noqa: E402
 from ofdm_sync_tpu_torch.__main__ import main as t_main  # noqa: E402
+from torch_plots import assert_same_run  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import SCDetector  # noqa: E402
 from ofdm_sync_tpu_torch.ops import detect  # noqa: E402
 from ofdm_sync_tpu_torch.ops import metrics as M  # noqa: E402
@@ -176,13 +177,16 @@ def test_report_matches_jax(capsys):
     assert (tr["plateau_end"], tr["coarse_start"]) == (jr["plateau_end"], jr["coarse_start"])
 
 
-def test_plots_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        sc.run_simulation("cir1", plots_subdir="measured_channel", device="cpu")
+def test_plots_match_jax(tmp_path):
+    """With plots on, the port prints the JAX pipeline's lines (its "Plots
+    saved to" line included) and writes the same PNG files."""
+    _, _, files = assert_same_run(tmp_path, jsc.run_simulation, sc.run_simulation, "cir1",
+                                  "measured_channel", device="cpu")
+    assert "plots/sc/measured_channel/sc_metric.png" in files and len(files) == 7
 
 
 def test_cli(capsys):
-    assert t_main(["sc", "--device", "cpu"]) == 0
+    assert t_main(["sc", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Detected plateau end at d=2063" in out and "Detected plateau end at d=1861" in out
     assert "ALL SIMULATIONS COMPLETE" in out

@@ -97,7 +97,7 @@ def test_simulation_and_report_match_jax(channel, capsys):
 
 
 def test_cli(capsys):
-    assert t_main(["zc_freq", "--device", "cpu"]) == 0
+    assert t_main(["zc_freq", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "Detected CP start sample: 1501" in out and "Detected CP start sample: 1337" in out
     assert "ALL SIMULATIONS COMPLETE" in out

@@ -25,6 +25,7 @@ from ofdm_sync_tpu.pipelines import zc as jzc  # noqa: E402
 from ofdm_sync_tpu.pipelines import zc_v2 as jzc_v2  # noqa: E402
 from ofdm_sync_tpu_torch.__main__ import main as t_main  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import common, zc, zc_v2  # noqa: E402
+from torch_plots import assert_same_run  # noqa: E402
 
 # tests/test_pipeline_parity.py:78-125: (module, channel) -> reference values
 REFERENCE = {
@@ -82,17 +83,21 @@ def test_post_detection_chain_matches_jax(channel, start):
     assert tp.xhat_aligned.shape == jp.xhat_aligned.shape == (SYS_30M72.num_active,)
 
 
-def test_plots_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        zc_v2.run_simulation("cir1", plots_subdir="measured_channel", device="cpu")
+def test_plots_match_jax(tmp_path):
+    """With plots on, the port prints the JAX pipeline's lines (its "Plots
+    saved to" line included) and writes the same PNG files, the correlation
+    zoom among them."""
+    _, _, files = assert_same_run(tmp_path, jzc_v2.run_simulation, zc_v2.run_simulation, "cir1",
+                                  "measured_channel", device="cpu")
+    assert "plots/zc_v2/measured_channel/correlation_zoom.png" in files and len(files) == 7
 
 
 def test_cli_runs_both_simulations(capsys):
-    assert t_main(["zc_v2", "--device", "cpu"]) == 0
+    assert t_main(["zc_v2", "--device", "cpu", "--no-plots"]) == 0
     out = capsys.readouterr().out
     assert "ZC V2 DETECTION RESULTS - FLAT AWGN" in out and "MEASURED CIR 'CIR1'" in out
     assert "<- PRIMARY" in out and "ALL SIMULATIONS COMPLETE" in out
-    assert t_main(["zc", "--device", "cpu"]) == 0
+    assert t_main(["zc", "--device", "cpu", "--no-plots"]) == 0
     assert "Matched filter peak index: 3548" in capsys.readouterr().out
     with pytest.raises(SystemExit):  # --help: the device flag says where the kernels run
         t_main(["zc_v2", "--help"])
