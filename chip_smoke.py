@@ -87,15 +87,23 @@ checkout, then, for each ported path:
   table against the one-shot kernels' table (an event may differ only
   where its gate holds a knife-edge sample); then `dryrun_multichip(4)`;
   (b) mesh (1, 1) over NCCL: each of them timed against the one-shot
-  kernels, with its halo, kernel, fix-up or priming and merge timed alone.
+  kernels, with its halo, kernel, fix-up or priming and merge timed alone;
+* the benches (phase 19): ``python -m ofdm_sync_tpu_torch bench`` and
+  ``python -m ofdm_sync_tpu_torch.bench_scaling``, each in a process of
+  its own, their lines (written to ``bench_out/bench_torch.json`` and
+  ``bench_out/scaling_torch.json`` under this checkout) checked: every
+  on-card check "ok", the card named, every figure, bound and share a
+  positive number, the sharded tables equal, the collective counts as
+  coded, the int16 wire bit-identical, the overlap split's order held.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after; a kernel of the path that was not launched fails the run.  Any
 failed check raises, so the exit code is non-zero and no result line is
 printed.  The last three lines of standard output are the kernels' JSON
 summary (with each kernel's bound: bytes over 3.35 TB/s or flops over 67
-TFLOP/s, the larger), the card's name and power limit, and the result
-line.  Needs
+TFLOP/s, the larger, from the work counts of
+`ofdm_sync_tpu_torch.utils.roofline`), the card's name and power limit,
+and the result line.  Needs
 CUDA; there is no CPU path.
 """
 
@@ -114,7 +122,6 @@ from unittest import mock
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: ``--timing [TREE]``: only the timed phases (5, 13, 15, and the kernel C,
@@ -125,6 +132,8 @@ _AT = sys.argv.index("--timing") + 1 if TIMING else 0
 TREE = os.path.abspath(sys.argv[_AT]) if TIMING and _AT < len(sys.argv) else ROOT
 sys.path.insert(0, TREE)
 
+from ofdm_sync_tpu_torch import bench as BENCH  # noqa: E402
+from ofdm_sync_tpu_torch.bench import card_line  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import aa_fused as AF  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import build  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import matched_filter as MF  # noqa: E402
@@ -148,7 +157,6 @@ from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
 from ofdm_sync_tpu_torch.models import detectors as D  # noqa: E402
 from ofdm_sync_tpu_torch.models.detectors import ZCStreamingDetector  # noqa: E402
 from ofdm_sync_tpu_torch.native import minn_rtl_detect_native  # noqa: E402
-from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full  # noqa: E402
 from ofdm_sync_tpu_torch.ops.detect import (  # noqa: E402
     GateEvents,
     extract_gate_events,
@@ -187,13 +195,32 @@ from ofdm_sync_tpu_torch.testing import (  # noqa: E402
     aa_stimulus,
     assert_tables_equal,
     event_tuples,
+    mag_stimulus,
+    mf_reference,
+    minn_stimulus,
     native_events,
     rtl_channel_leading,
+    rel_err,
     rtl_stimulus,
     table_arrays,
+    zc_iq_stimulus,
 )
 from ofdm_sync_tpu_torch.utils import profiling  # noqa: E402
-from ofdm_sync_tpu_torch.utils.profiling import cuda_ms, device_ms, kernel_ms  # noqa: E402
+from ofdm_sync_tpu_torch.utils.profiling import (  # noqa: E402
+    cuda_ms,
+    device_ms,
+    kernel_ms,
+)
+from ofdm_sync_tpu_torch.utils.roofline import (  # noqa: E402
+    a_work,
+    b_work,
+    bound,
+    c_work,
+    d_iq_work,
+    d_mag_work,
+    e_work,
+    gated_samples,
+)
 
 KW = dict(smooth_shift=3, threshold_value=int(0.10 * (1 << 15)), threshold_frac_bits=15)
 HYST = 2
@@ -217,37 +244,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def card_device() -> torch.device:
     return torch.device("cuda", 0)
-
-
-def minn_stimulus(batch: int, L: int, Q: int, device, seed: int = 0, events=None):
-    """(4, batch, L) integer-valued float32 noise round(8*N(0,1)) from a
-    seeded generator on `device`, with 5Q preambles [-A,+A,+A,-A,-A]
-    (scaled to small integers, built in NumPy) added at known positions.
-    Integer values keep every window sum exact in both versions."""
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal(Q) + 1j * rng.standard_normal(Q)
-    pre = np.concatenate([-A, A, A, -A, -A])
-    pre /= np.sqrt(np.mean(np.abs(pre) ** 2))
-    planes = [3.0 * np.round(24.0 * pre.real), 3.0 * np.round(24.0 * pre.imag)]
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((4, batch, L), generator=g, device=device).mul_(8.0).round_()
-    if events is None:
-        events = [(0, 3 * Q), (min(1, batch - 1), L // 3),
-                  (min(2, batch - 1), L // 2), (min(3, batch - 1), L - 7 * Q)]
-    for b, pos in events:
-        for c in range(4):
-            x[c, b, pos: pos + 5 * Q] += torch.as_tensor(planes[c % 2], dtype=torch.float32,
-                                                          device=device)
-    return x, events
 
 
 def plain_metric(x, Q):
@@ -940,29 +938,6 @@ def pss_template(n_fft: int):
     return ref, taps, float(np.sqrt(np.sum(np.abs(ref) ** 2)))
 
 
-def zc_iq_stimulus(batch: int, n: int, ref, device, *, seed: int = 0, events=()):
-    """(4, batch, n) float32 integer-valued noise round(8 N(0,1)) from a
-    seeded generator on `device`, with the template scaled to integers
-    round(24 x) added on both branches at each (stream, position)."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((4, batch, n), generator=g, device=device).mul_(8.0).round_()
-    planes = [torch.as_tensor(np.round(24.0 * part), dtype=torch.float32, device=device)
-              for part in (ref.real, ref.imag)]
-    for b, pos in events:
-        k = min(len(ref), n - pos)
-        for c in range(4):
-            x[c, b, pos: pos + k] += planes[c % 2][:k]
-    return x
-
-
-def mf_reference(x, taps) -> torch.Tensor:
-    """complex128 FFT convolution of the plane pairs of x with the taps."""
-    xc = torch.complex(x[0::2].double(), x[1::2].double())
-    t = torch.as_tensor(taps, device=x.device).double()
-    y = fft_convolve_full(xc, torch.complex(t[0], t[1]))
-    return torch.stack([y.real, y.imag], dim=1).reshape((x.shape[0],) + y.shape[1:])
-
-
 def check_mf(x, taps, what: str, rtol: float = MF_RTOL, **kw) -> float:
     """Kernel E vs complex128 within rtol of the output peak; returns
     max |err|."""
@@ -1046,18 +1021,6 @@ def tail_witness(x, taps, table, streams, kw: dict) -> dict:
     log(f"  noise-only streams {streams}, event peaks: " + "; ".join(
         f"{k} {v}" for k, v in out.items()))
     return out
-
-
-def mag_stimulus(batch: int, n: int, device, *, seed: int, events=()):
-    """Correlation magnitudes: 0.05 |N(0,1)| with a peak of 1 and its
-    sidelobes at each (stream, position)."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((batch, n), generator=g, device=device).abs_().mul_(0.05)
-    for b, pos in events:
-        for d, v in ((-3, 0.2), (-1, 0.6), (0, 1.0), (1, 0.5), (4, 0.25)):
-            if 0 <= pos + d < n:
-                x[b, pos + d] += v
-    return x
 
 
 def phase_zc_kernels(dev) -> dict:
@@ -1446,92 +1409,7 @@ SMOOTH_RTOL = 1e-5
 CARRY_RTOL = 1e-5
 #: the streaming cells: 64 streams x 2^20 samples x 2 branches (1 GiB f32)
 STREAM = dict(batch=64, n=1 << 20, chunks=(4096, 65536))
-#: a live 30.72 Msps stream delivers a 4096-sample block every 133.3 us
-BLOCK_BUDGET_US = 4096 / 30.72e6 * 1e6
-#: H100 SXM data-sheet peaks at 700 W (HBM3, FP32 outside the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 MINN_PARAMS = dict(quarter_len=512, **KW, hysteresis=HYST, max_events=8, tie="last")
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of bytes over
-    the HBM rate and flops over the FP32 rate, and which one it is."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
-def a_work(batch, L, C, itemsize, out_bytes, hist_len=0, scan=True):
-    """Kernel A: each input sample read once (and the history), each output
-    written once; ~4C + 12 flops per sample (2C products, 2C sums, window
-    differences, smoothing step, threshold)."""
-    nbytes = batch * L * (C * itemsize + out_bytes) + C * batch * hist_len * 4 + 8 * batch
-    return nbytes, batch * L * (4 * C + (12 if scan else 6))
-
-
-def b_work(above, gated, E=8, n_extra=0):
-    """Kernel B: above read once, track (and the captured channels) read
-    only at the gated samples this run's data has, the table written once."""
-    batch, L = above.shape
-    nbytes = (batch * L + 4 * int(gated) * (1 + n_extra) + batch * E * (2 + 16 + 4 * n_extra)
-              + 8 * batch)
-    return nbytes, 2 * batch * L + 10 * int(gated)
-
-
-def c_work(batch, L, C, itemsize, out_bytes, hist_len=0):
-    """Kernel C: each sample read once, each output written once; per
-    sample per branch 12 flops of products and sums, ~10 more for the
-    windows, track and M."""
-    nbytes = batch * L * (C * itemsize + out_bytes) + C * batch * hist_len * 4
-    return nbytes, batch * L * (6 * C + 10)
-
-
-def d_mag_work(batch, L, hist_len=0):
-    return batch * L * (4 + 1) + batch * hist_len * 4, batch * L * 8
-
-
-def d_iq_work(batch, Lc, L_iq, C, itemsize, hist_len=0):
-    """Kernel D in IQ mode: mf and IQ (and the halos) read once, mag and
-    above (and the gate carry) written once; per output 4C + 12 flops."""
-    nbytes = batch * (Lc * (C * 4 + 5) + L_iq * C * itemsize)
-    if hist_len:
-        nbytes += batch * (hist_len * C * (4 + itemsize) + 8)
-    return nbytes, batch * (Lc + hist_len) * (4 * C + 12)
-
-
-def e_work(x, T, out_len):
-    """Kernel E's function, a full convolution, at the least work it needs
-    (not the direct form's 8T flops per output): its bytes, and the flops of
-    the cheaper of two FFT convolutions of the outputs that are not zero
-    (the first L + T - 1): one transform pair per stream over N = the next
-    power of two, or overlap-save over F-point blocks of F - 2048 outputs
-    (kernel E's geometry).  5 n log2 n flops per complex n-point transform,
-    6n per complex product, one transform of the taps."""
-    C, batch, L = x.shape
-    streams = (C // 2) * batch
-    lz = min(out_len, L + T - 1)
-
-    def conv(n, blocks):
-        fft = 5.0 * n * (n.bit_length() - 1)
-        return streams * blocks * (2 * fft + 6.0 * n) + fft
-
-    F = MF.FFT_SIZE
-    flops = min(conv(1 << (lz - 1).bit_length(), 1), conv(F, -(-lz // (F - MF.DISCARD))))
-    return x.numel() * 4 + C * batch * out_len * 4 + 8 * T, flops
-
-
-def gated_samples(above, hysteresis) -> int:
-    """Samples inside a gate (where kernel B reads the track)."""
-    from ofdm_sync_tpu_torch.ops.detect import gate_open_mask
-
-    return int(gate_open_mask(above, hysteresis).sum())
-
-
-def rel_err(out, ref) -> float:
-    """max |out - ref| / max(1, |ref|max)."""
-    if not ref.numel():
-        return 0.0
-    return float((out.double() - ref.double()).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
 def check_knife(above, ref, smooth, energy, what: str) -> int:
@@ -1930,58 +1808,20 @@ def phase_streams(dev, card: str) -> dict:
     return {"counts": counts, "modes": modes, "steps": steps, **out}
 
 
-def marginal_us(step, make_state, chunks, k0: int = 128, k1: int = 1152) -> float:
-    """Per-chunk cost from the difference of two run lengths, one
-    synchronize at each end (bench.py's method, never wall / K)."""
-    def run(k):
-        s = make_state()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(k):
-            s = step(s, chunks[i])
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    run(k0)  # warm
-    return (run(k1) - run(k0)) / (k1 - k0) * 1e6
-
-
 def phase_latency(dev, card: str) -> dict:
     log(f"== phase 15: per-block latency at batch 1 (2 branches, 4096-sample blocks, budget "
-        f"{BLOCK_BUDGET_US:.1f} us at 30.72 Msps) and streaming throughput")
+        f"{BENCH.BLOCK_BUDGET_US:.1f} us at 30.72 Msps) and streaming throughput")
     Q = MINN_PARAMS["quarter_len"]
     mp = ST.MinnRTLStreamParams(**MINN_PARAMS)
-    nblk = 1152
-    x, _ = minn_stimulus(1, 4096 * nblk, Q, dev, seed=15,
-                         events=[(0, 4096 * k + 1000) for k in range(3, nblk, 40)])
-    fused_chunks = [x[..., 4096 * i: 4096 * (i + 1)].contiguous() for i in range(nblk)]
-    plain_chunks = [F._planar_view(c)[0] for c in fused_chunks]  # (2, 2, 4096) views
+    lat = BENCH.block_latency(dev, seed=15)
     res = {}
-    fused = lambda s, c: ST.minn_rtl_fused_stream_step(s, c, params=mp)[0]  # noqa: E731
-    plain = lambda s, c: ST.minn_rtl_stream_step(s, c, params=mp)  # noqa: E731
-    for name, step, init, chunks in (
-            ("fused", fused, lambda: ST.minn_rtl_fused_stream_init(mp, 1, device=dev),
-             fused_chunks),
-            ("plain", plain, lambda: ST.minn_rtl_stream_init(mp, 2, device=dev), plain_chunks)):
-        s = init()
-        for c in chunks[:8]:  # warm up
-            s = step(s, c)
-        torch.cuda.synchronize()
-        walls = []
-        for c in chunks[8:128]:
-            t0 = time.perf_counter()
-            s = step(s, c)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e6)
-        res[f"{name}_p50_us"] = float(np.median(walls))
-        res[f"{name}_p99_us"] = float(np.percentile(walls, 99))
-        res[f"{name}_marginal_us"] = marginal_us(step, init, chunks)
-        log(f"  {name} step: p50 {res[f'{name}_p50_us']:.1f} us (p99 "
-            f"{res[f'{name}_p99_us']:.1f}) per block with a sync after each, marginal "
-            f"{res[f'{name}_marginal_us']:.1f} us per block; budget {BLOCK_BUDGET_US:.1f} us; "
-            f"card {card}")
-    del x, fused_chunks, plain_chunks
-    torch.cuda.empty_cache()
+    for name in ("fused", "plain"):
+        for key in ("p50_us", "p90_us", "marginal_us"):
+            res[f"{name}_{key}"] = lat[name][key]
+        log(f"  {name} step: p50 {res[f'{name}_p50_us']:.1f} us (p90 "
+            f"{res[f'{name}_p90_us']:.1f}) per block with a sync after each, marginal "
+            f"{res[f'{name}_marginal_us']:.1f} us per block; budget "
+            f"{BENCH.BLOCK_BUDGET_US:.1f} us; card {card}")
 
     # throughput: the headline stream in 16 fused steps vs one-shot A + B;
     # the streamed run's tables and final state against the one-shot run's
@@ -2648,9 +2488,7 @@ def phase_shards(dev, card: str) -> dict:
 
     # (b) mesh (1, 1) over NCCL in this process
     x32, _ = minn_stimulus(B, L, Q, dev, events=shard_events(L, B))
-    DI.initialize(f"tcp://localhost:{DI.free_port()}", 1, 0, backend="nccl")
-    try:
-        mesh = SH.make_stream_mesh(1, 1)
+    with BENCH.mesh11(dev) as mesh:
         for overlap in (True, False):
             t = SH.sharded_minn_rtl_detect_fused(x32, mesh, **det, overlap_halo=overlap,
                                                  rows=SHARD_ROWS)
@@ -2689,8 +2527,6 @@ def phase_shards(dev, card: str) -> dict:
             seq_merge_ms=cuda_ms(lambda: SH.merge_shard_event_tables(
                 pieces[1], mesh, h=h, E=8, tie_last=True, emit_unclosed=False)))
         del pieces, stacked
-    finally:
-        dist.destroy_process_group()
     del x32, view
     torch.cuda.empty_cache()
     res["knife_streams"] = dict(knives)
@@ -2898,9 +2734,7 @@ def rest_timings(dev, card: str) -> dict:
     B, L, Q, h = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"], HYST
     metric = dict(quarter_len=Q, **KW)
     res = {}
-    DI.initialize(f"tcp://localhost:{DI.free_port()}", 1, 0, backend="nccl")
-    try:
-        mesh = SH.make_stream_mesh(1, 1)
+    with BENCH.mesh11(dev) as mesh:
         zero = torch.zeros(B, device=dev)
 
         def timed(name, sharded, one_shot):
@@ -2996,8 +2830,6 @@ def rest_timings(dev, card: str) -> dict:
                                      hist_len=H)))
         del x, ext, mf, halo, o
         torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
     for name, r in res.items():
         parts = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in r.items()
                           if k.endswith("_ms") and k not in ("ms", "one_shot_ms", "kernel_ms",
@@ -3105,6 +2937,102 @@ def phase_rest(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the port's two benches, run as a user runs them
+# ---------------------------------------------------------------------------
+
+#: where phase 19 has the benches write their result lines
+BENCH_DIR = os.path.join(ROOT, "bench_out")
+BENCH_TIMEOUT_S = 600
+
+
+def run_bench(module: list[str], name: str) -> dict:
+    """``python -m <module> --out bench_out/<name>.json`` from the
+    checkout's root in a process of its own: exit code 0, and the last line
+    of its standard output, parsed, equal to the file it wrote."""
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    path = os.path.join(BENCH_DIR, f"{name}.json")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *module, "--out", path], cwd=ROOT,
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    for line in p.stderr.splitlines():
+        log(f"  | {line}")
+    if p.returncode != 0:
+        raise AssertionError(f"{' '.join(module)} exited {p.returncode}")
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    with open(path) as f:
+        if json.load(f) != line:
+            raise AssertionError(f"{path} differs from the printed line")
+    log(f"  {' '.join(module)}: {time.perf_counter() - t0:.1f} s, line in {path}")
+    return line
+
+
+def positive(value, what: str) -> None:
+    if not (isinstance(value, (int, float)) and value > 0 and np.isfinite(value)):
+        raise AssertionError(f"{what}: {value!r} is not a positive number")
+
+
+def phase_benches(card: str) -> dict:
+    """Phase 19: `python -m ofdm_sync_tpu_torch bench` and
+    `python -m ofdm_sync_tpu_torch.bench_scaling`, each in a process of its
+    own; their lines checked: every on-card check "ok", the card named,
+    every headline, latency and secondary figure and every bound and share
+    a positive number; (a)'s and (b)'s tables equal, (b)'s counts as coded
+    and repeated, the int16 wire bit-identical, (d) holding."""
+    log("== phase 19: the benches, as a user runs them")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    b = run_bench(["ofdm_sync_tpu_torch", "bench"], "bench_torch")
+    bad = {k: v for k, v in b["checks"].items() if v != "ok"}
+    if not (b["checked"] and b["check_ok"]) or bad or len(b["checks"]) != 5:
+        raise AssertionError(f"bench: on-card checks {b['checks']}")
+    if b["device"]["name"] != kind or b["device"]["nvidia_smi"] != card:
+        raise AssertionError(f"bench: device {b['device']} is not {kind} ({card})")
+    if "vs_baseline" in b:
+        raise AssertionError("bench: a vs_baseline key")
+    positive(b["value"], "bench value")
+    h = b["headline"]
+    for key in ("median_ms", "p90_ms", "n", "int16_samples_per_sec"):
+        positive(h[key], f"bench headline {key}")
+    for name in ("f32", "int16", "full_metric", "corr_energy"):
+        for key in ("median_ms", "p90_ms", "per_s", "bound_ms", "share"):
+            positive(h[name][key], f"bench headline {name} {key}")
+    for name in ("fused", "plain"):
+        for key in ("p50_us", "p90_us", "marginal_us"):
+            positive(b["latency"][name][key], f"bench latency {name} {key}")
+    for name, r in b["secondary"].items():
+        for key in ("median_ms", "p90_ms", "per_s", "bound_ms", "share"):
+            positive(r[key], f"bench secondary {name} {key}")
+    if len(b["kernels"]) != 10:
+        raise AssertionError(f"bench: {len(b['kernels'])} kernel rows, not 10")
+    for row in b["kernels"]:
+        for path, r in row["timed"].items():
+            positive(r["share"], f"bench kernels {row['tpu_kernel']} {path} share")
+            if not r["launches"]:
+                raise AssertionError(f"bench: {row['tpu_kernel']} {path} launched no kernel")
+    s = run_bench(["ofdm_sync_tpu_torch.bench_scaling"], "scaling_torch")
+    ranks = s["cpu_ranks"]
+    if not (s["ok"] and s["card"]["tables_equal"] and ranks["holds"]
+            and ranks["int16_wire_bit_identical"] and s["structure"]["holds"]
+            and s["structure"]["kernel_a_launched_before_wait"] is True):
+        raise AssertionError(f"bench_scaling: ok {s['ok']}, (b) {ranks['meshes']}, (d) "
+                             f"{s['structure']}")
+    if s["device"]["name"] != kind or not s["cross_card"].startswith("not measured"):
+        raise AssertionError(f"bench_scaling: device {s['device']}, cross_card {s['cross_card']}")
+    for key in ("sharded_overhead_ratio", "sharded_overlap_overhead_ratio",
+                "one_shot_samples_per_sec"):
+        positive(s["card"][key], f"bench_scaling (a) {key}")
+    res = {"bench": {"value": b["value"], "headline_median_ms": h["median_ms"],
+                     "fused_p50_us": b["latency"]["fused"]["p50_us"]},
+           "scaling": {"overhead_ratio": s["card"]["sharded_overhead_ratio"],
+                       "weak_seq_8card_nvlink_f32":
+                           s["projection"]["halo_f32"]["weak_seq_8card_nvlink"]},
+           "seconds": time.perf_counter() - t0}
+    log(f"  phase 19: {res}; card {card}")
+    return res
+
+
 def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
     """Kernel E's function as one PyTorch call, `conv1d` (cuDNN, TF32 off):
     the complex full convolution of each plane pair with the taps as a
@@ -3206,6 +3134,7 @@ def main() -> int:
     fam = phase_families(dev, card)
     shards = phase_shards(dev, card)
     rest = phase_rest(dev, card)
+    benches = phase_benches(card)
     h32 = head["f32"]
     aa_launches = {name: aa_chain["counts"][name] + aa_sweep["counts"][name]
                    + aa_grid["counts"][name] for name in counts}
@@ -3296,7 +3225,7 @@ def main() -> int:
                       "stream_kernels": sk["res"], "streams": streams, "latency": lat,
                       "families": {k: fam[k] for k in ("simulations", "oracle", "timings")},
                       "shards": {k: v for k, v in shards.items() if k != "view_work"},
-                      "rest": rest,
+                      "rest": rest, "benches": benches,
                       "other_bounds_ms": other_bounds}))
     print(json.dumps({"kernels": kernels}))
     print(card)

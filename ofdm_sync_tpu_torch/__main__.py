@@ -3,11 +3,13 @@
 The reference-parity simulations of every detector family and the [A][A]
 grid test (`aa`), the CP/FFT demo, the receive chains of `fused_rx`
 ([A][A], the default, and the flagship Minn-RTL), `waveform` (plots of a
-preamble, a QPSK symbol or a frame) and `list`.  Every command runs on the
-card unless ``--device cpu`` is given.  The simulations write the
-reference's plots under ``plots/`` (this needs matplotlib);
-``--no-plots`` runs them without plots, and without matplotlib.  The JAX
-CLI's `bench` command waits for a later slice.
+preamble, a QPSK symbol or a frame), `bench` (the benchmark on one card,
+`ofdm_sync_tpu_torch.bench`; its scaling counterpart runs as
+``python -m ofdm_sync_tpu_torch.bench_scaling``) and `list`.  Every command
+but `bench` runs on the card unless ``--device cpu`` is given; `bench`
+runs on the card only and exits non-zero without one.  The simulations
+write the reference's plots under ``plots/`` (this needs matplotlib);
+``--no-plots`` runs them without plots, and without matplotlib.
 """
 
 from __future__ import annotations
@@ -74,9 +76,18 @@ def main(argv: list[str] | None = None) -> int:
                         help="waveform to render")
     p_wave.add_argument("--out", default="plots/waveforms", help="output directory")
     p_wave.add_argument("--seed", type=int, default=0)
+    p_bench = sub.add_parser(
+        "bench", help="the benchmark on one card: on-card checks, headline, block latency, "
+                      "secondary workloads; one JSON line (the card only, no --device)")
+    p_bench.add_argument("--seed", type=int, default=0, help="seed of every stimulus")
+    p_bench.add_argument("--out", default=None, help="also write the result line to this file")
     sub.add_parser("list", help="list the simulations and detector families").add_argument(
         "--device", default="cuda", help="accepted like every command's; list runs nothing")
     args = parser.parse_args(argv)
+    if args.command == "bench":
+        from ofdm_sync_tpu_torch import bench
+
+        return bench.main(["--seed", str(args.seed)] + (["--out", args.out] if args.out else []))
     if args.command == "fused_rx":
         fused_rx.run_cli(args)
     elif args.command == "list":

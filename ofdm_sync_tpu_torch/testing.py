@@ -40,6 +40,24 @@ def assert_tables_equal(ref, out, what: str = "", peak_rtol: float = 0.0) -> Non
         raise AssertionError(f"{what}: peak_value differs beyond {tol}")
 
 
+def rel_err(out, ref) -> float:
+    """max |out - ref| / max(1, |ref|max) (0 for an empty ref)."""
+    if not ref.numel():
+        return 0.0
+    return float((out.double() - ref.double()).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def mf_reference(x, taps) -> torch.Tensor:
+    """The complex128 FFT convolution of the plane pairs of x (2*BR,
+    batch, L) with the planar taps (2, T): planar (2*BR, batch, L + T - 1),
+    the matched filter's reference."""
+    from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full
+
+    xc = torch.complex(x[0::2].double(), x[1::2].double())
+    t = torch.as_tensor(taps, device=x.device).double()
+    y = fft_convolve_full(xc, torch.complex(t[0], t[1]))
+    return torch.stack([y.real, y.imag], dim=1).reshape((x.shape[0],) + y.shape[1:])
+
 def aa_stimulus(batch: int, n: int, half_len: int, device, *, seed: int = 0,
                 events=(), branches: int = 2) -> torch.Tensor:
     """Channel-leading (2*branches, batch, n) float32 integer-valued noise
@@ -60,6 +78,58 @@ def aa_stimulus(batch: int, n: int, half_len: int, device, *, seed: int = 0,
             x[c, b, pos: pos + 2 * half_len] += planes[c % 2][: n - pos]
     return x
 
+
+
+def minn_stimulus(batch: int, L: int, Q: int, device, seed: int = 0, events=None):
+    """(4, batch, L) integer-valued float32 noise round(8*N(0,1)) from a
+    seeded generator on `device`, with 5Q preambles [-A,+A,+A,-A,-A]
+    (scaled to small integers, built in NumPy) added at known positions
+    (default: four, in streams 0-3).  Integer values keep every window sum
+    exact in kernel A and its plain version.  Returns (x, events)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal(Q) + 1j * rng.standard_normal(Q)
+    pre = np.concatenate([-A, A, A, -A, -A])
+    pre /= np.sqrt(np.mean(np.abs(pre) ** 2))
+    planes = [3.0 * np.round(24.0 * pre.real), 3.0 * np.round(24.0 * pre.imag)]
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((4, batch, L), generator=g, device=device).mul_(8.0).round_()
+    if events is None:
+        events = [(0, 3 * Q), (min(1, batch - 1), L // 3),
+                  (min(2, batch - 1), L // 2), (min(3, batch - 1), L - 7 * Q)]
+    for b, pos in events:
+        for c in range(4):
+            x[c, b, pos: pos + 5 * Q] += torch.as_tensor(planes[c % 2], dtype=torch.float32,
+                                                          device=device)
+    return x, events
+
+
+def zc_iq_stimulus(batch: int, n: int, ref, device, *, seed: int = 0, events=()):
+    """(4, batch, n) float32 integer-valued noise round(8 N(0,1)) from a
+    seeded generator on `device`, with the template ``ref`` (complex)
+    scaled to integers round(24 x) added on both branches at each (stream,
+    position)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((4, batch, n), generator=g, device=device).mul_(8.0).round_()
+    planes = [torch.as_tensor(np.round(24.0 * part), dtype=torch.float32, device=device)
+              for part in (ref.real, ref.imag)]
+    for b, pos in events:
+        k = min(len(ref), n - pos)
+        for c in range(4):
+            x[c, b, pos: pos + k] += planes[c % 2][:k]
+    return x
+
+
+def mag_stimulus(batch: int, n: int, device, *, seed: int, events=()):
+    """Correlation magnitudes: 0.05 |N(0,1)| from a seeded generator on
+    `device`, with a peak of 1 and its sidelobes at each (stream,
+    position)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, n), generator=g, device=device).abs_().mul_(0.05)
+    for b, pos in events:
+        for d, v in ((-3, 0.2), (-1, 0.6), (0, 1.0), (1, 0.5), (4, 0.25)):
+            if 0 <= pos + d < n:
+                x[b, pos + d] += v
+    return x
 
 #: the [A][A] golden vectors' stimulus (reference
 #: docs/aa_preamble_sync_design.md section 12): sample rate, pad before the

@@ -866,3 +866,23 @@ def test_cuda_sharded_rest_two_ranks_on_one_card(cuda):
                            ("zc", ("matched_filter_ols", "zc_metric/primed_iq"))):
             got = out[key, "modes"]
             assert all(got.get(m, 0) >= 1 for m in modes), (r, key, got)
+
+
+@pytest.mark.gpu
+def test_cuda_bench_checks_small(cuda):
+    """The bench's five on-card checks (`ofdm_sync_tpu_torch.bench`) at a
+    small shape: kernels A + B, D (IQ) + B, C + B with capture and C's
+    metric mode, E, and the sharded detect at mesh (1, 1) over NCCL, each
+    against its plain version; every kernel launched."""
+    from ofdm_sync_tpu_torch import bench
+    from ofdm_sync_tpu_torch.testing import minn_stimulus, zc_iq_stimulus
+
+    ref, taps, _ = bench.zc_template()
+    reset_launch_counts()
+    bench.check_minn_rtl(minn_stimulus(16, 8192, 512, cuda, seed=1)[0])
+    bench.check_zc_iq(*bench.zc_check_inputs(8, 8192, cuda, 2))
+    bench.check_aa(aa_stimulus(8, 8192, 512, cuda, seed=3, events=[(0, 2048), (1, 4000)]))
+    assert bench.check_mf(zc_iq_stimulus(2, 8192, ref, cuda, seed=4, events=[(0, 1000)]),
+                          taps) <= bench.MF_RTOL
+    bench.check_sharded(minn_stimulus(16, 8192, 512, cuda, seed=5)[0])
+    assert all(n >= 1 for n in launch_counts().values()), launch_counts()

@@ -105,3 +105,16 @@ def test_gate_events_table_roundtrip_numpy():
     assert t.gate_start.dtype == torch.int32 and t.valid.dtype == torch.bool
     for f, a in t.to_numpy().items():
         np.testing.assert_array_equal(a, np.asarray(getattr(ref, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("name,args", [("largest_true_run", ()), ("earliest_long_run_end", (3,))])
+def test_run_helpers_on_an_empty_stream(name, args):
+    """Pinned difference: on a stream of no samples JAX's run helpers raise
+    (an argmax of nothing), the port's return an empty mask and -1."""
+    with pytest.raises(ValueError, match="argmax of an empty sequence"):
+        getattr(jdet, name)(jnp.zeros(0, bool), *args)
+    out = getattr(tdet, name)(torch.zeros(0, dtype=torch.bool), *args)
+    if name == "largest_true_run":
+        assert out.dtype == torch.bool and out.shape == (0,)
+    else:
+        assert out.ndim == 0 and int(out) == -1

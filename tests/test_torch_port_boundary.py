@@ -6,7 +6,8 @@ card as its default device.
 * the port's `data/channels.npz` is a byte-for-byte copy of the JAX
   package's (same SHA-256);
 * a fresh interpreter that imports every module of the port (the
-  sharded path `ofdm_sync_tpu_torch.parallel` among them) and
+  sharded path `ofdm_sync_tpu_torch.parallel` and the two benches among
+  them) and
   `chip_smoke.py` (and so everything it imports) has loaded neither `jax`,
   `ofdm_sync_tpu` nor `matplotlib`;
 * the port's binding of the C++ oracle builds into the port's own
@@ -85,7 +86,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "want = ['native', 'pipelines.sc', 'pipelines.minn', 'pipelines.minn_rtl',\n"
         "        'pipelines.park', 'pipelines.zc_freq', 'pipelines.combined_sc_minn',\n"
         "        'pipelines.cp_fft_demo', 'parallel', 'parallel.distributed',\n"
-        "        'parallel.shard', 'parallel.dryrun']\n"
+        "        'parallel.shard', 'parallel.dryrun', 'bench', 'bench_scaling',\n"
+        "        'utils.roofline']\n"
         "assert not {'ofdm_sync_tpu_torch.' + m for m in want} - set(mods), mods\n"
         "assert not bad, bad\n"
     )
