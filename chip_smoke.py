@@ -42,16 +42,21 @@ checkout, then, for each ported path:
   and the plain version;
 * streaming (phases 13-15): kernel A's full-metric and corr/energy modes at
   the Minn headline size and the primed (carried-state) modes of kernels A,
-  B, C and D against their plain versions; the fused stream steps
-  (`kernels.streaming_chunked`: Minn-RTL A + B, [A][A] C + B, ZC CFAR D + B)
-  over 64 streams x 2^20 samples in chunks of 4096 and 65536, their
-  stitched tables against the one-shot tables, against the same steps with
-  the plain versions of their kernels on the card, and against the CPU; the
-  per-block latency at batch 1 (p50 of synchronized steps, and the marginal
-  cost between 128 and 1152 steps) beside the 133.3 us a 30.72 Msps stream
-  allows; the headline stream in 16 fused steps against one-shot A + B
-  (tables and final state), and each primed kernel against its plain
-  version at that step's shape;
+  B, C and D against their plain versions, and kernel F (the Minn-RTL
+  stream step in one launch) against its plain version from random states;
+  the fused stream steps (`kernels.streaming_chunked`: Minn-RTL kernel F,
+  [A][A] C + B, ZC CFAR D + B) over 64 streams x 2^20 samples in chunks of
+  4096 and 65536, their stitched tables against the one-shot tables,
+  against the same steps with the plain versions of their kernels on the
+  card, and against the CPU, with F launched once a Minn step and A and B
+  not at all, and F timed beside the step composed of A + B; the per-block
+  latency at batch 1 (p50 of synchronized steps, the host's enqueue time,
+  and the marginal cost between 128 and 1152 steps) of F, of the composed
+  A + B step and of the plain step beside the 133.3 us a 30.72 Msps stream
+  allows, and a profiler window over 100 batch-1 steps that must hold one
+  device kernel a step, F; the headline stream in 16 fused steps against
+  one-shot A + B (tables and final state), F and each primed kernel
+  against its plain version at that step's shape;
 * families and the integer oracle (phase 16): the parity simulations of
   the families without a TPU kernel and of Minn-RTL (sc, minn, minn_rtl,
   park, zc_freq, combined_sc_minn) on the card against the reference's
@@ -215,10 +220,12 @@ from ofdm_sync_tpu_torch.utils.roofline import (  # noqa: E402
     a_work,
     b_work,
     bound,
+    bound_sum,
     c_work,
     d_iq_work,
     d_mag_work,
     e_work,
+    f_work,
     gated_samples,
 )
 
@@ -1438,9 +1445,9 @@ def gate_carry(batch: int, base: int, g: torch.Generator, dev, h: int):
 def phase_stream_kernels(dev, card: str) -> dict:
     B, L, Q = HEADLINE["batch"], HEADLINE["L"], HEADLINE["Q"]
     log(f"== phase 13: kernel A's full-metric and corr/energy modes at {B} x {L} x 2, Q={Q}; "
-        "the primed modes of A, B, C, D vs plain")
+        "the primed modes of A, B, C, D and kernel F vs plain")
     res, errs = {}, {"full": 0.0, "corr_energy": 0.0, "primed_a": 0.0, "primed_c": 0.0,
-                     "primed_d": 0.0}
+                     "primed_d": 0.0, "step": 0.0}
     x32, _ = minn_stimulus(B, L, Q, dev)
     for name in ("f32", "i16"):
         x = x32 if name == "f32" else x32.to(torch.int16)
@@ -1526,6 +1533,34 @@ def phase_stream_kernels(dev, card: str) -> dict:
             check_equal(cap, rcap, f"{what} B captured")
             check_equal(gate_out, rg, f"{what} B capture gate_out")
         log(f"  {what}: ok")
+
+    # kernel F, the stream step, from random states: a global base, a
+    # history, a register and gate carries that continue into the chunk
+    # or not (gaps 1 .. 2h + 1), f32 chunks read as a strided view
+    for Qs, batch, n, dt, tie in ((64, 5, 10_000, torch.float32, "first"),
+                                  (512, 3, 3 * 4096 + 5, torch.int16, "last"),
+                                  (512, 4, 2 * 4096, torch.float32, "last")):
+        base = int(torch.randint(0, 1 << 30, (1,), generator=g, device=dev))
+        xx, _ = minn_stimulus(batch, n + 64, Qs, dev, seed=n + 7,
+                              events=[(0, 364), (batch - 1, n // 2)])
+        x = xx[..., 64:].to(dt)
+        H = ST._hist_width(3 * Qs)
+        hist, _ = minn_stimulus(batch, H, Qs, dev, seed=n + 8, events=[])
+        carry = torch.rand(batch, generator=g, device=dev) * 1e4
+        h = HYST if Qs == 64 else 40
+        la = base - torch.randint(1, 2 * h + 2, (batch,), generator=g, device=dev)
+        gate = torch.stack([la, torch.randint(0, 4, (batch,), generator=g, device=dev)],
+                           dim=1).to(torch.int32)
+        gate[0, 0] = -1
+        mp = ST.MinnRTLStreamParams(Qs, **KW, hysteresis=h, max_events=8, tie=tie)
+        kw = ST.minn_step_kwargs(mp, base)
+        out = F.minn_rtl_step(x, hist, carry, gate, **kw)
+        what = f"F Q={Qs} batch={batch} n={n} {str(dt)[6:]} tie={tie} base={base}"
+        excused, err = check_step(out, plain_step(x, hist, carry, gate, kw),
+                                  step_knife(x, hist, carry, base, Qs), what)
+        errs["step"] = max(errs["step"], err)
+        log(f"  {what}: ok ({int(out[0].count.sum())} events, register rel err {err:.2e}"
+            f"{f', {excused} knife-edge streams' if excused else ''})")
 
     # kernel C primed (bit-equal on integer stimulus) and D primed magnitude
     for lag, batch, n, dt in ((128, 5, 10_000, torch.float32),
@@ -1706,6 +1741,100 @@ def check_stream(name, step, init, x, ref, h: int, kw: dict, *, tie_last=True, r
     return states, out
 
 
+def plain_step(x, hist, carry, gate, kw: dict):
+    """Kernel F's plain version on the card's tensors: no kernel runs."""
+    with plain_kernels():
+        return F.minn_rtl_step_plain(x, hist, carry, gate, **kw)
+
+
+def step_knife(x, hist, carry, base: int, Q: int) -> dict:
+    """`minn_knife` of the plain full metric over [hist | x] from the
+    register ``carry`` (samples from the metric's first valid one)."""
+    st = minn_rtl_metric_planar(F._planar_view(x), quarter_len=Q, **KW, base_index=base,
+                                hist_init=F._planar_view(hist), carry_init=carry)
+    return minn_knife(st, max(0, 3 * Q - 1 - base))
+
+
+def check_step(out, ref, knife: dict, what: str) -> tuple[int, float]:
+    """Kernel F's (table, carry, gate, history) against the plain step's:
+    the history equal; per stream the table and the gate carry equal, or
+    the stream holds a knife-edge sample (`knife`); the register within
+    CARRY_RTOL of max(1, |plain|).  Returns (streams excused, register rel
+    err)."""
+    table, carry, gate, hist = cpu_table(out[0]), *(t.cpu() for t in out[1:])
+    rt, rc, rg, rh = cpu_table(ref[0]), *(t.cpu() for t in ref[1:])
+    check_equal(hist, rh, f"{what} history")
+    excused = 0
+    for b in range(gate.shape[0]):
+        try:
+            assert_tables_equal(rt.select(b), table.select(b), f"{what} stream {b}")
+            check_equal(gate[b], rg[b], f"{what} stream {b} gate")
+        except AssertionError:
+            if b not in knife:
+                raise
+            excused += 1
+    err = float(((carry - rc).abs() / rc.abs().clamp_min(1.0)).max())
+    if err > CARRY_RTOL:
+        raise AssertionError(f"{what}: register rel err {err} > {CARRY_RTOL}")
+    return excused, err
+
+
+def step_timings(x, state, mp, card: str, what: str) -> dict:
+    """One Minn stream step on chunk x from ``state``: kernel F
+    (`minn_rtl_fused_stream_step`) and the composed A + B step
+    (`bench.composed_step`), each one call between CUDA events (median of
+    5), back to back (`device_ms`) and by the profiler; F's bound
+    (`f_work`) and the composed kernels' bound (A primed + B carried)."""
+    C, B, Lc = x.shape
+    H = state.hist.shape[-1]
+    base = int(state.base)
+    _, above = F.minn_rtl_metric(x, quarter_len=mp.quarter_len, **KW, base_index=base,
+                                 hist_init=state.hist, carry_init=state.carry)
+    gated = gated_samples(above, mp.hysteresis)
+    f_step = lambda: ST.minn_rtl_fused_stream_step(state, x, params=mp)  # noqa: E731
+    composed = lambda: BENCH.composed_step(state, x, mp)  # noqa: E731
+    res = {"shape": [C, B, Lc], "f_ms": cuda_ms(f_step), "f_device_ms": device_ms(f_step),
+           "f_kernel_ms": kernel_ms(f_step), "composed_ms": cuda_ms(composed),
+           "composed_device_ms": device_ms(composed), "composed_kernel_ms": kernel_ms(composed),
+           "work": f_work(B, Lc, C, x.element_size(), H, gated)}
+    res["bound_ms"], res["bound_by"] = bound(*res["work"])
+    res["composed_bound_ms"] = bound_sum((a_work(B, Lc, C, x.element_size(), 5, hist_len=H),
+                                          b_work(above, gated)))[0]
+    log(f"  {what}: kernel F {res['f_ms']:.4f} ms (back to back {res['f_device_ms']:.4f}, "
+        f"profiler {res['f_kernel_ms']}) vs the composed A + B step {res['composed_ms']:.4f} "
+        f"(back to back {res['composed_device_ms']:.4f}, profiler {res['composed_kernel_ms']}); "
+        f"F's bound {res['bound_ms']:.5f} ms ({res['bound_by']}), A + B's "
+        f"{res['composed_bound_ms']:.5f}; F {'slower' if res['f_ms'] > res['composed_ms'] else 'faster'}"
+        f" than the composition by events; card {card}")
+    return res
+
+
+def step_profile(dev, mp, steps: int = 100) -> dict:
+    """torch.profiler over ``steps`` batch-1 Minn steps of 4096 samples
+    (`utils.profiling.device_window`): exactly one device kernel a step,
+    all of them kernel F, and one kernel launch a step by the host, or the
+    run fails."""
+    x, _ = minn_stimulus(1, 8 * 4096, mp.quarter_len, dev, seed=150, events=[(0, 5000)])
+    chunks = [c.contiguous() for c in x.split(4096, dim=-1)]
+    st = {"state": ST.minn_rtl_fused_stream_init(mp, 1, device=dev), "i": 0}
+
+    def step():
+        st["state"], _ = ST.minn_rtl_fused_stream_step(st["state"], chunks[st["i"] % 8],
+                                                       params=mp)
+        st["i"] += 1
+
+    w = profiling.device_window(step, steps, launches_per_call=1)
+    by = w["by_kernel"]
+    ok = (isinstance(by, dict) and w["device_events"] == w["host_launches"] == steps
+          and len(by) == 1 and "minn_rtl_step_kernel" in next(iter(by))
+          and next(iter(by.values()))["count"] == steps)
+    if not ok:
+        raise AssertionError(f"profiler over {steps} steps: {w['device_events']} device "
+                             f"events, {w['host_launches']} kernel launches by the host, "
+                             f"kernels {by}")
+    return w
+
+
 def phase_streams(dev, card: str) -> dict:
     B, n = STREAM["batch"], STREAM["n"]
     Q = MINN_PARAMS["quarter_len"]
@@ -1720,10 +1849,17 @@ def phase_streams(dev, card: str) -> dict:
     zc_ev = [(b, p) for b in range(2, B, 5) for p in (4096 * (11 + b) - 3, 65536 * 7 + 1)
              if p + 5 <= n]
     out = {}
-    steps = 3 * sum(n // chunk for chunk in STREAM["chunks"])
-    reset_launch_counts()
+    steps = sum(n // chunk for chunk in STREAM["chunks"])  # a path's steps
+    counts, modes = collections.Counter(), collections.Counter()
 
-    # Minn-RTL: kernels A + B primed, against the one-shot full metric + B
+    def path_counts(name: str) -> dict:
+        c = launch_counts()
+        counts.update(c)
+        modes.update(mode_launch_counts())
+        log(f"  {name} step path: launches {c}")
+        return c
+
+    # Minn-RTL: kernel F, against the one-shot full metric + B
     x, _ = minn_stimulus(B, n, Q, dev, seed=14, events=minn_ev)
     st, ref = F.minn_rtl_detect_planar_fused(x, quarter_len=Q, **KW, hysteresis=HYST)
     ref_u = F.minn_rtl_detect_fused(x, quarter_len=Q, **KW, hysteresis=HYST, emit_unclosed=True)
@@ -1732,11 +1868,17 @@ def phase_streams(dev, card: str) -> dict:
     if rel_err(c, st.corr_positive) > CORR_RTOL:
         raise AssertionError("stream corr/energy: corr differs from the full metric")
     del c, e
+    reset_launch_counts()
     states, o = check_stream(
         "minn", ST.minn_rtl_fused_stream_step,
         lambda: ST.minn_rtl_fused_stream_init(mp, B, device=dev), x, ref_u, HYST,
         dict(params=mp), knife=minn_knife(st, 3 * Q - 1))
     out.update(o)
+    c = path_counts("minn")
+    if c["minn_rtl_step"] != steps or c["minn_rtl_metric"] or c["gate_events"]:
+        raise AssertionError(f"the {steps} Minn steps launched {c}: kernel F once a step, "
+                             "A and B never")
+    out["minn_step_launches"] = c["minn_rtl_step"]
     for chunk, state in states.items():
         cerr = float(((state.carry - st.smooth_metric[:, -1]).abs()
                       / st.smooth_metric[:, -1].abs().clamp_min(1.0)).max())
@@ -1745,7 +1887,11 @@ def phase_streams(dev, card: str) -> dict:
         out[f"minn_carry_rel_err_{chunk}"] = cerr
     log(f"  minn: {int(ref_u.count.sum())} events ({int(ref.count.sum())} closed); carry vs "
         f"one-shot smooth[:, -1], rel err {[out[f'minn_carry_rel_err_{c}'] for c in states]}")
-    del st, ref, ref_u, states
+    del st, ref, ref_u
+    for chunk, state in states.items():
+        out[f"minn_step_{chunk}"] = step_timings(x[..., :chunk].contiguous(), state, mp, card,
+                                                 f"minn step at {B} x {chunk}")
+    del states
     minn_small = x[:, :2, : 1 << 16].contiguous()
     del x
     torch.cuda.empty_cache()
@@ -1754,11 +1900,15 @@ def phase_streams(dev, card: str) -> dict:
     lag = AA_HEADLINE["lag"]
     x = aa_stimulus(B, n, lag, dev, seed=15, events=aa_ev)
     rt, rP, rM = AF.aa_detect_fused(x, half_len=lag, emit_unclosed=True)
+    reset_launch_counts()
     _, o = check_stream("aa", ST.aa_fused_stream_step,
                         lambda: ST.aa_fused_stream_init(lag, B, device=dev), x, rt, AA_HYST,
                         dict(half_len=lag), tie_last=False,
                         ref_cap=torch.cat([rP, rM[:, None]], dim=1))
     out.update(o)
+    c = path_counts("aa")
+    if c["aa_metric"] < steps or c["gate_events"] < steps:
+        raise AssertionError(f"fewer kernel launches than the {steps} [A][A] steps: {c}")
     aa_small = x[:, :2, : 1 << 16].contiguous()
     del x, rt, rP, rM
     torch.cuda.empty_cache()
@@ -1766,23 +1916,24 @@ def phase_streams(dev, card: str) -> dict:
     # ZC CFAR: kernels D (magnitude) + B primed on dyadic magnitudes
     W = ZC_CFAR["corr_window"]
     mag = dyadic(mag_stimulus(B, n, dev, seed=16, events=zc_ev))
+    ref_zc = ZF.zc_cfar_detect(mag, **ZC_CFAR)
+    reset_launch_counts()
     _, o = check_stream("zc", ST.zc_cfar_fused_stream_step,
                         lambda: ST.zc_cfar_fused_stream_init(W, B, device=dev), mag,
-                        ZF.zc_cfar_detect(mag, **ZC_CFAR), 256, ZC_CFAR, tie_last=False)
+                        ref_zc, 256, ZC_CFAR, tie_last=False)
     out.update(o)
+    c = path_counts("zc")
+    if c["zc_metric"] < steps or c["gate_events"] < steps:
+        raise AssertionError(f"fewer kernel launches than the {steps} ZC CFAR steps: {c}")
     zc_small = mag[:2, : 1 << 16].contiguous()
     del mag
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    counts = launch_counts()
-    modes = mode_launch_counts()
-    log(f"  launches: {counts}; modes {modes}")
-    if min(modes.get("minn_rtl_metric/primed", 0), modes.get("gate_events/primed", 0),
-           modes.get("aa_metric/primed", 0), modes.get("zc_metric/primed", 0)) < 1:
+    counts, modes = dict(counts), dict(modes)
+    log(f"  launches on the three step paths: {counts}; modes {modes}")
+    if min(modes.get("gate_events/primed", 0), modes.get("aa_metric/primed", 0),
+           modes.get("zc_metric/primed", 0)) < 1:
         raise AssertionError(f"a primed kernel of the streams was not launched: {modes}")
-    if counts["minn_rtl_metric"] + counts["aa_metric"] + counts["zc_metric"] < steps or \
-            counts["gate_events"] < steps:
-        raise AssertionError(f"fewer kernel launches than the {steps} stream steps: {counts}")
 
     # the same streams at 2 x 2^16 on the CPU equal the card, chunk by chunk
     cases = (("minn", ST.minn_rtl_fused_stream_step,
@@ -1805,7 +1956,7 @@ def phase_streams(dev, card: str) -> dict:
                                                  atol=CARRY_RTOL):
             raise AssertionError("minn: carry card vs cpu")
         log(f"  {name} at 2 x {1 << 16}: card == cpu over {len(tg)} chunks")
-    return {"counts": counts, "modes": modes, "steps": steps, **out}
+    return {"counts": counts, "modes": modes, "steps": 3 * steps, **out}
 
 
 def phase_latency(dev, card: str) -> dict:
@@ -1815,13 +1966,29 @@ def phase_latency(dev, card: str) -> dict:
     mp = ST.MinnRTLStreamParams(**MINN_PARAMS)
     lat = BENCH.block_latency(dev, seed=15)
     res = {}
-    for name in ("fused", "plain"):
-        for key in ("p50_us", "p90_us", "marginal_us"):
+    for name in ("fused", "composed", "plain"):
+        for key in ("p50_us", "p90_us", "marginal_us", "enqueue_p50_us", "enqueue_p90_us"):
             res[f"{name}_{key}"] = lat[name][key]
+        bound_us = lat[name].get("bound_us")
         log(f"  {name} step: p50 {res[f'{name}_p50_us']:.1f} us (p90 "
-            f"{res[f'{name}_p90_us']:.1f}) per block with a sync after each, marginal "
-            f"{res[f'{name}_marginal_us']:.1f} us per block; budget "
+            f"{res[f'{name}_p90_us']:.1f}) per block with a sync after each, host enqueue p50 "
+            f"{res[f'{name}_enqueue_p50_us']:.1f} us, marginal "
+            f"{res[f'{name}_marginal_us']:.1f} us per block; launches "
+            f"{lat[name]['launches']}; bound "
+            f"{'-' if bound_us is None else f'{bound_us:.4f} us'}; budget "
             f"{BENCH.BLOCK_BUDGET_US:.1f} us; card {card}")
+    res["fused_bound_us"], res["composed_bound_us"] = (lat["fused"]["bound_us"],
+                                                        lat["composed"]["bound_us"])
+    res["block_launches"] = lat["fused"]["launches"]
+    prof = step_profile(dev, mp)
+    res["profile"] = {k: prof[k] for k in ("calls", "window_ms", "bare_ms", "device_events",
+                                           "host_launches", "busy_ms", "idle_share")}
+    (name, k), = prof["by_kernel"].items()
+    res["profile"]["f_kernel_us"] = k["ms"] / k["count"] * 1e3
+    log(f"  profiler over {prof['calls']} batch-1 steps: {prof['device_events']} device "
+        f"kernels, all kernel F ({name[:60]}), {res['profile']['f_kernel_us']:.2f} us a step on "
+        f"the card, idle share {prof['idle_share']:.3f} of a {prof['window_ms']:.2f} ms window; "
+        f"card {card}")
 
     # throughput: the headline stream in 16 fused steps vs one-shot A + B;
     # the streamed run's tables and final state against the one-shot run's
@@ -1846,9 +2013,10 @@ def phase_latency(dev, card: str) -> dict:
     s = streamed(tables)
     torch.cuda.synchronize()
     res["stream16_launches"], res["stream16_modes"] = launch_counts(), mode_launch_counts()
-    if min(res["stream16_modes"].get("minn_rtl_metric/primed", 0),
-           res["stream16_modes"].get("gate_events/primed", 0)) < len(pieces):
-        raise AssertionError(f"the {len(pieces)} steps launched {res['stream16_modes']}")
+    c = res["stream16_launches"]
+    if c["minn_rtl_step"] != len(pieces) or c["minn_rtl_metric"] or c["gate_events"]:
+        raise AssertionError(f"the {len(pieces)} steps launched {c}: kernel F once a step, "
+                             "A and B never")
     ref_h = cpu_table(ref)
     excused = compare_events([stitched(tables, None, b, L, HYST, True) for b in range(B)],
                              [table_events(ref_h, b) for b in range(B)], HYST,
@@ -1876,12 +2044,25 @@ def phase_latency(dev, card: str) -> dict:
         f"= {B * L / res['stream16_ms'] * 1e3:.4g} samples/s vs one-shot A + B "
         f"{res['oneshot_ms']:.3f} ms ({res['stream16_ms'] / res['oneshot_ms']:.2f}x); card {card}")
 
-    # each primed kernel alone at the 512 x 16384 step shape, against its
-    # plain version on the same inputs (the phase-13 rules), then timed
+    # kernel F and each primed kernel alone at the 512 x 16384 step shape,
+    # against its plain version on the same inputs (the phase-13 rules),
+    # then timed
     base = 3 * chunk
     p = pieces[3]
     hist = pieces[2][..., -1536:].contiguous()
     carry = torch.rand(B, device=dev) * 1e4
+    gate = gate_carry(B, base, torch.Generator(device=dev).manual_seed(16), dev, HYST)
+    kw = ST.minn_step_kwargs(mp, base)
+    what = f"F at {B} x {chunk}"
+    excused, res["f_err"] = check_step(F.minn_rtl_step(p, hist, carry, gate, **kw),
+                                       plain_step(p, hist, carry, gate, kw),
+                                       step_knife(p, hist, carry, base, Q), what)
+    log(f"  {what} == plain ({excused} knife-edge streams), register rel err {res['f_err']:.2e}")
+    state = ST.MinnRTLFusedStreamState(hist=hist, carry=carry, gate=gate,
+                                       base=torch.tensor(base, dtype=torch.int32))
+    res["f_step"] = step_timings(p, state, mp, card, what)
+    res["plain_f_ms"] = cuda_ms(lambda: plain_step(p, hist, carry, gate, kw))
+    log(f"  {what}: the plain step on the card {res['plain_f_ms']:.3f} ms")
     akw = dict(quarter_len=Q, **KW, base_index=base, hist_init=hist, carry_init=carry)
     plain_a = lambda: minn_rtl_metric_planar(  # noqa: E731
         F._planar_view(p), quarter_len=Q, **KW, base_index=base,
@@ -2977,7 +3158,7 @@ def phase_benches(card: str) -> dict:
     `python -m ofdm_sync_tpu_torch.bench_scaling`, each in a process of its
     own; their lines checked: every on-card check "ok", the card named,
     every headline, latency and secondary figure and every bound and share
-    a positive number; (a)'s and (b)'s tables equal, (b)'s counts as coded
+    a positive number, the fused step's launches kernel F's alone; (a)'s and (b)'s tables equal, (b)'s counts as coded
     and repeated, the int16 wire bit-identical, (d) holding."""
     log("== phase 19: the benches, as a user runs them")
     torch.cuda.empty_cache()
@@ -2998,9 +3179,11 @@ def phase_benches(card: str) -> dict:
     for name in ("f32", "int16", "full_metric", "corr_energy"):
         for key in ("median_ms", "p90_ms", "per_s", "bound_ms", "share"):
             positive(h[name][key], f"bench headline {name} {key}")
-    for name in ("fused", "plain"):
-        for key in ("p50_us", "p90_us", "marginal_us"):
+    for name in ("fused", "composed", "plain"):
+        for key in ("p50_us", "p90_us", "marginal_us", "enqueue_p50_us"):
             positive(b["latency"][name][key], f"bench latency {name} {key}")
+    if set(b["latency"]["fused"]["launches"]) != {"minn_rtl_step"}:
+        raise AssertionError(f"bench: the fused step launched {b['latency']['fused']['launches']}")
     for name, r in b["secondary"].items():
         for key in ("median_ms", "p90_ms", "per_s", "bound_ms", "share"):
             positive(r[key], f"bench secondary {name} {key}")
@@ -3024,7 +3207,8 @@ def phase_benches(card: str) -> dict:
                 "one_shot_samples_per_sec"):
         positive(s["card"][key], f"bench_scaling (a) {key}")
     res = {"bench": {"value": b["value"], "headline_median_ms": h["median_ms"],
-                     "fused_p50_us": b["latency"]["fused"]["p50_us"]},
+                     "fused_p50_us": b["latency"]["fused"]["p50_us"],
+                     "composed_p50_us": b["latency"]["composed"]["p50_us"]},
            "scaling": {"overhead_ratio": s["card"]["sharded_overhead_ratio"],
                        "weak_seq_8card_nvlink_f32":
                            s["projection"]["halo_f32"]["weak_seq_8card_nvlink"]},
@@ -3165,6 +3349,10 @@ def main() -> int:
          "ofdm_sync_tpu/kernels/pallas_minn.py:403", modes.get("minn_rtl_metric/primed", 0),
          max(sk["errs"]["primed_a"], lat["a_primed_err"]), lat["a_primed_ms"],
          lat["plain_a_primed_ms"], lat["a_primed_work"], None),
+        ("minn_rtl_step", "minn_rtl_step.cu", "ofdm_sync_tpu/kernels/pallas_minn.py:403",
+         streams["minn_step_launches"] + lat["stream16_launches"]["minn_rtl_step"],
+         max(sk["errs"]["step"], lat["f_err"]), lat["f_step"]["f_ms"], lat["plain_f_ms"],
+         lat["f_step"]["work"], None),
         ("gate_events", "gate_events.cu", "ofdm_sync_tpu/kernels/pallas_minn_tm.py:60",
          counts["gate_events"] + fam["gate_events"], 0.0, h32["b_ms"], h32["plain_b_ms"],
          b_work(torch.empty((B, L), dtype=torch.bool, device="meta"), h32["b_gated"]), None),

@@ -16,7 +16,8 @@ Ported so far:
   CFAR paths of `ZCStreamingDetector`;
 * the chunked streaming receivers (`kernels.streaming_chunked`, exported
   here): Minn-RTL plain and fused, [A][A] fused and ZC CFAR fused, each
-  carrying its state between chunks;
+  carrying its state between chunks; the fused Minn-RTL step is one launch
+  of kernel F a chunk (`minn_rtl_step`, exported here);
 * the reference-parity simulations of every family: the Minn-RTL pipeline
   with its sweeps, and the families without a TPU kernel (D1 Schmidl-Cox,
   D2 Minn, D4 Park, D6 ZC-frequency, D8 combined S&C + Minn, plain
@@ -26,7 +27,7 @@ Ported so far:
   when a plot is made), the CLI (`python -m ofdm_sync_tpu_torch`) and the
   timing helpers of `utils.profiling`.
 
-Plain tensor code is PyTorch; the detection hot paths are the five
+Plain tensor code is PyTorch; the detection hot paths are the six
 hand-written CUDA kernels for the H100 in `kernels/csrc/`.  On CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.  The package
 never imports JAX.
@@ -64,6 +65,11 @@ from ofdm_sync_tpu_torch.kernels.streaming_chunked import (  # noqa: F401
     stitch_chunk_tables,
     zc_cfar_fused_stream_init,
     zc_cfar_fused_stream_step,
+)
+
+from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (  # noqa: F401
+    minn_rtl_step,
+    minn_rtl_step_plain,
 )
 
 __version__ = "0.1.0"

@@ -14,8 +14,9 @@ It runs on the card only and in this order:
    streams x 262,144 samples x 2 branches (planar float32, 2 GiB; then the
    same samples as int16 ADC codes), with kernel A's full-metric and
    corr/energy modes beside it and one torch.profiler window over its calls;
-3. the block latency of the streaming receiver at batch 1 (the plain and
-   the fused step, 4096-sample blocks);
+3. the block latency of the streaming receiver at batch 1 (4096-sample
+   blocks): the fused step (kernel F), the same step composed of kernels A
+   and B, and the plain step, each with its host enqueue time;
 4. the secondary workloads of `bench.py`'s `_secondary_kernels`.
 
 Every stimulus is drawn on the card from a `torch.Generator` seeded from
@@ -90,6 +91,7 @@ from ofdm_sync_tpu_torch.utils.roofline import (
     d_iq_work,
     d_mag_work,
     e_work,
+    f_work,
     gated_samples,
     sliding_dft_work,
 )
@@ -375,13 +377,33 @@ def headline(dev, seed: int) -> dict:
     return res
 
 
+def composed_step(state, chunk, params):
+    """The fused Minn-RTL stream step as it ran before kernel F: the
+    chunk's float32 copy, the gate rule in torch, kernel A primed, kernel B
+    carried and the history roll (`minn_rtl_step_plain` on the card's
+    tensors).  Kept here to time beside F in one call; the port never
+    calls it."""
+    base = int(state.base)
+    table, carry, gate, hist = F.minn_rtl_step_plain(
+        chunk.to(torch.float32).contiguous(), state.hist, state.carry, state.gate,
+        **ST.minn_step_kwargs(params, base))
+    state = ST.MinnRTLFusedStreamState(
+        hist=hist, carry=carry, gate=gate,
+        base=torch.tensor(base + chunk.shape[-1], dtype=torch.int32))
+    return state, table
+
+
 def block_latency(dev, seed: int) -> dict:
     """The streaming receiver at batch 1 x 2 branches on 4096-sample blocks:
-    the plain `minn_rtl_stream_step` and the fused `minn_rtl_fused_stream_step`
-    (kernels A primed + B carried).  For each: the p50 and p90 of
-    BLOCK_STEPS steps, each ended by a synchronize (us), and the marginal
-    cost (wall(1152 steps) - wall(128 steps)) / 1024 (us); the fused step's
-    launches a step and its kernels' bound."""
+    the fused `minn_rtl_fused_stream_step` (kernel F, one launch a block),
+    the same step composed of kernels A (primed) and B (carried) and torch
+    (`composed_step`), and the plain `minn_rtl_stream_step`.  For each: the
+    p50 and p90 of BLOCK_STEPS steps, each ended by a synchronize (us), the
+    host's enqueue time of the same steps (the host clock from the call to
+    its return, before the synchronize: p50 and p90, us), and the marginal
+    cost (wall(1152 steps) - wall(128 steps)) / 1024 (us); the launches of
+    each kernel over the timed steps, and the bound of the fused and the
+    composed step's kernels."""
     mp = ST.MinnRTLStreamParams(**MINN, hysteresis=HYST, max_events=DETECT["max_events"],
                                 tie=DETECT["tie"])
     nblk = MARGINAL_STEPS[1]
@@ -390,11 +412,13 @@ def block_latency(dev, seed: int) -> dict:
     fused_chunks = [x[..., BLOCK * i: BLOCK * (i + 1)].contiguous() for i in range(nblk)]
     plain_chunks = [F._planar_view(c)[0] for c in fused_chunks]  # (2, 2, BLOCK) views
     fused = lambda s, c: ST.minn_rtl_fused_stream_step(s, c, params=mp)[0]  # noqa: E731
+    composed = lambda s, c: composed_step(s, c, mp)[0]  # noqa: E731
     plain = lambda s, c: ST.minn_rtl_stream_step(s, c, params=mp)  # noqa: E731
+    fused_init = lambda: ST.minn_rtl_fused_stream_init(mp, 1, device=dev)  # noqa: E731
     res = {"budget_us": BLOCK_BUDGET_US, "block": BLOCK, "batch": 1, "branches": BRANCHES}
     for name, step, init, chunks in (
-            ("fused", fused, lambda: ST.minn_rtl_fused_stream_init(mp, 1, device=dev),
-             fused_chunks),
+            ("fused", fused, fused_init, fused_chunks),
+            ("composed", composed, fused_init, fused_chunks),
             ("plain", plain, lambda: ST.minn_rtl_stream_init(mp, BRANCHES, device=dev),
              plain_chunks)):
         s = init()
@@ -402,26 +426,36 @@ def block_latency(dev, seed: int) -> dict:
             s = step(s, c)
         torch.cuda.synchronize()
         reset_launch_counts()
-        walls = []
+        walls, enqueue = [], []
         for c in chunks[8: 8 + BLOCK_STEPS]:
             t0 = time.perf_counter()
             s = step(s, c)
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e6)
-        sm = summary(walls)
+            enqueue.append((t1 - t0) * 1e6)
+        sm, se = summary(walls), summary(enqueue)
         res[name] = {"p50_us": sm["median"], "p90_us": sm["p90"], "n": sm["n"],
-                     "marginal_us": marginal_us(step, init, chunks, *MARGINAL_STEPS),
+                     "enqueue_p50_us": se["median"], "enqueue_p90_us": se["p90"],
                      "launches": {k: v for k, v in launch_counts().items() if v}}
+        res[name]["marginal_us"] = marginal_us(step, init, chunks, *MARGINAL_STEPS)
         log(f"bench latency {name}: p50 {sm['median']:.1f} us, p90 {sm['p90']:.1f} us "
-            f"(n {sm['n']}), marginal {res[name]['marginal_us']:.1f} us per block; budget "
-            f"{BLOCK_BUDGET_US:.1f} us")
-    need_launches(res["fused"], "fused step", BLOCK_STEPS, "minn_rtl_metric", "gate_events")
+            f"(n {sm['n']}), host enqueue p50 {se['median']:.1f} us, marginal "
+            f"{res[name]['marginal_us']:.1f} us per block; budget {BLOCK_BUDGET_US:.1f} us")
+    need_launches(res["fused"], "fused step", BLOCK_STEPS, "minn_rtl_step")
+    if set(res["fused"]["launches"]) != {"minn_rtl_step"}:
+        raise RuntimeError(f"the fused step launched more than kernel F: "
+                           f"{res['fused']['launches']}")
+    need_launches(res["composed"], "composed step", BLOCK_STEPS, "minn_rtl_metric", "gate_events")
     corr, above = F.minn_rtl_metric(fused_chunks[100], **MINN)
-    hist = ST.minn_rtl_fused_stream_init(mp, 1, device=dev).hist.shape[-1]
-    res["fused"]["bound_us"], res["fused"]["bound_by"] = bound_sum(
-        (a_work(1, BLOCK, 4, 4, 5, hist_len=hist), b_work(above, gated_samples(above, HYST))))
-    res["fused"]["bound_us"] *= 1e3
-    res["fused"]["share"] = res["fused"]["bound_us"] / res["fused"]["p50_us"]
+    hist = fused_init().hist.shape[-1]
+    gated = gated_samples(above, HYST)
+    for name, works in (("fused", (f_work(1, BLOCK, 4, 4, hist, gated),)),
+                        ("composed", (a_work(1, BLOCK, 4, 4, 5, hist_len=hist),
+                                      b_work(above, gated)))):
+        bound_ms, res[name]["bound_by"] = bound_sum(works)
+        res[name]["bound_us"] = bound_ms * 1e3
+        res[name]["share"] = res[name]["bound_us"] / res[name]["p50_us"]
     del x, fused_chunks, plain_chunks
     torch.cuda.empty_cache()
     return res
@@ -539,7 +573,7 @@ def secondary(dev, seed: int) -> dict:
 TPU_KERNELS = (
     ("ofdm_sync_tpu/kernels/pallas_minn_tm.py:60 _tm_kernel", "A + B",
      ("headline.f32", "headline.int16")),
-    ("ofdm_sync_tpu/kernels/pallas_minn.py:403 _detect_kernel", "A primed + B carried",
+    ("ofdm_sync_tpu/kernels/pallas_minn.py:403 _detect_kernel", "F (the stream step)",
      ("latency.fused",)),
     ("ofdm_sync_tpu/kernels/pallas_minn.py:240 _minn_kernel", "A full-metric mode",
      ("headline.full_metric",)),
@@ -569,8 +603,8 @@ def kernel_rows(sections: dict) -> list[dict]:
         for path in calls:
             sec, name = path.split(".")
             r = sections[sec][name]
-            keep = ("median_ms", "p50_us", "bound_ms", "bound_us", "bound_by", "share",
-                    "launches")
+            keep = ("median_ms", "p50_us", "enqueue_p50_us", "bound_ms", "bound_us",
+                    "bound_by", "share", "launches")
             timed_calls[path] = {k: r[k] for k in keep if k in r}
         rows.append({"tpu_kernel": tpu, "port": port, "timed": timed_calls})
     return rows

@@ -51,6 +51,10 @@ def _claims() -> tuple:
             Claim(doc, rf"fused step p50 {_NUM} us", "bench", ("latency", "fused", "p50_us")),
             Claim(doc, rf"fused step p50 [\d.]+ us, marginal {_NUM} us", "bench",
                   ("latency", "fused", "marginal_us")),
+            Claim(doc, rf"marginal [\d.]+ us, host enqueue p50 {_NUM} us", "bench",
+                  ("latency", "fused", "enqueue_p50_us")),
+            Claim(doc, rf"composed A \+ B step p50 {_NUM} us", "bench",
+                  ("latency", "composed", "p50_us")),
             Claim(doc, rf"`aa_fused` {_NUM} ms", "bench",
                   ("secondary", "aa_fused", "median_ms")),
             Claim(doc, rf"`zc_iq` f32 {_NUM} ms", "bench",

@@ -3,7 +3,8 @@
 * `streaming` -- plain PyTorch planar datapaths (the kernels' plain
   versions, `to_planar` / `from_planar`)
 * `minn_rtl_fused` -- kernels A (Minn-RTL metric, every mode) and B (gate
-  events) for the flagship Minn-RTL detector
+  events) for the flagship Minn-RTL detector, and kernel F (one Minn-RTL
+  stream step in one launch)
 * `aa_fused` -- kernel C ([A][A] metric and detect) with B's capture mode
 * `zc_fused` -- kernel D (ZC CFAR, magnitude and IQ modes) with B
 * `matched_filter` -- kernel E (the ZC matched filter, overlap-save FFT)
@@ -31,6 +32,8 @@ _MINN_RTL_FUSED = (
     "minn_rtl_detect_fused",
     "minn_rtl_detect_planar_fused",
     "minn_rtl_metric_planar_fused",
+    "minn_rtl_step",
+    "minn_rtl_step_plain",
 )
 _SUBMODULES = (
     "streaming", "streaming_chunked", "minn_rtl_fused", "aa_fused", "zc_fused",

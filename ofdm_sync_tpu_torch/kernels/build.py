@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "minn_rtl_metric": [_I, _P, _P, _P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _LL, _F, _LL,
                         _F, _F, _P, _P, _P, _P, _P, _P],
+    "minn_rtl_step": [_I, _P, _LL, _LL, _P, _I, _P, _P, _I, _I, _LL, _I, _LL, _F, _LL, _F, _F,
+                      _I, _I, _I, _LL, *[_P] * 11, _P],
     "gate_events_f32": [_P, _P, _I, _LL, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                         _I, _LL, _P, _P, _P, _I, _P],

@@ -63,7 +63,8 @@
 // each thread reads its 16 track values together where one may be gated,
 // folds its gated samples into one aggregate per cluster, and a warp whose
 // lanes all hold the same cluster merges them before one shared atomic per
-// field.
+// field (the tile walk and the slots: gate_slots.cuh, which kernel F's
+// stream step shares).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -71,6 +72,7 @@
 #include <algorithm>
 
 #include "block_scan.cuh"
+#include "gate_slots.cuh"
 
 namespace {
 
@@ -114,23 +116,10 @@ struct Params {
   int* done;                    // (batch,) spans finished
 };
 
-// the gate state entering a sample: last above (-1: none), clusters so far
-struct Gate {
-  int la, cnt;
-};
-
-__device__ __forceinline__ unsigned long long peak_key(float v, int n, bool tie_last) {
-  unsigned u = __float_as_uint(v);
-  if ((u << 1) == 0u) u = 0u;  // -0.0 -> +0.0
-  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  const unsigned i = tie_last ? (unsigned)n : (unsigned)(kI32Max - n);
-  return ((unsigned long long)ord << 32) | i;
-}
-
-__device__ __forceinline__ int key_index(unsigned long long key, bool tie_last) {
-  const int i = (int)(unsigned)(key & 0xffffffffull);
-  return tie_last ? i : kI32Max - i;
-}
+using ofdm::Gate;
+using ofdm::key_index;
+using ofdm::last_bit_index;
+using ofdm::Slots;
 
 // the 16 bytes of `above` at local index lb: one vector load inside the
 // stream, byte loads (zero past L) at its ragged end
@@ -171,10 +160,6 @@ __device__ __forceinline__ void load_group(uint4 (&r)[G], const uint8_t* ab, int
 
 // any nonzero byte: a superset of the above samples (before the masks)
 __device__ __forceinline__ bool any_byte(uint4 v) { return (v.x | v.y | v.z | v.w) != 0u; }
-
-__device__ __forceinline__ int last_bit_index(unsigned bits, int n0) {
-  return bits ? n0 + 31 - __clz(bits) : -1;
-}
 
 // ---- 1. span summaries ------------------------------------------------------
 
@@ -241,43 +226,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gate_summary_kernel(cons
 
 // ---- 2. the walk, the merge, the table -------------------------------------
 
-struct Slots {
-  int* start;
-  int* last;
-  unsigned long long* key;
-};
-
-__device__ __forceinline__ void flush(const Slots& sl, int c, int E, int start, int last,
-                                      unsigned long long key) {
-  if (c < 1 || c > E) return;  // clusters past E own no slot
-  const int s = c - 1;
-  if (start != kI32Max) atomicMin(&sl.start[s], start);
-  if (last >= 0) atomicMax(&sl.last[s], last);
-  if (key) atomicMax(&sl.key[s], key);
-}
-
 // one tile that holds an above sample (any) or that an open gate reaches:
 // fold each gated sample into its cluster's slot and advance the gate
 __device__ __forceinline__ void walk_tile(const Params& p, const float* tb, int lb, unsigned bits,
                                           bool any, Gate& g, int* s_scan, const Slots& sl) {
   const int n0 = p.base + lb;
-  const bool tie_last = p.tie_last != 0;
-  int la0 = g.la, cid = g.cnt, tile_max = -1, tile_new = 0;
-  if (any) {
-    la0 = max(g.la, ofdm::block_excl_int<true>(last_bit_index(bits, n0), -1, s_scan, &tile_max));
-    int nnew = 0, prev = la0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (!(bits >> k & 1u)) continue;
-      if (prev < 0 || n0 + k - prev > p.h) ++nnew;
-      prev = n0 + k;
-    }
-    cid = g.cnt + ofdm::block_excl_int<false>(nnew, 0, s_scan, &tile_new);
-  }
+  const ofdm::TileGate t = ofdm::tile_gate<kItems>(bits, any, n0, g, p.h, s_scan);
   // the thread's track values, loaded together where a sample may be gated
   // (an above sample among them, or the gate open at the first)
   float tv[kItems];
-  if ((bits || (la0 >= 0 && n0 - la0 <= p.h)) && n0 < p.track_end) {
+  if ((bits || (t.la0 >= 0 && n0 - t.la0 <= p.h)) && n0 < p.track_end) {
     if (p.vec && lb + kItems <= p.L) {
 #pragma unroll
       for (int q = 0; q < kItems / 4; ++q) {
@@ -292,46 +250,8 @@ __device__ __forceinline__ void walk_tile(const Params& p, const float* tb, int 
       for (int k = 0; k < kItems; ++k) tv[k] = lb + k < p.L ? tb[lb + k] : 0.0f;
     }
   }
-  // one aggregate per cluster met, in sample order
-  int cur = 0, a_start = kI32Max, a_last = -1, prev = la0;
-  unsigned long long a_key = 0ull;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int n = n0 + k;
-    const bool is_above = bits >> k & 1u;
-    if (is_above) {
-      if (prev < 0 || n - prev > p.h) ++cid;
-      prev = n;
-    }
-    if (prev >= 0 && n - prev <= p.h && cid >= 1 && n < p.track_end) {
-      if (cid != cur) {
-        if (cur) flush(sl, cur, p.E, a_start, a_last, a_key);
-        cur = cid;
-        a_start = n;
-        a_last = -1;
-        a_key = 0ull;
-      }
-      if (is_above) a_last = n;
-      a_key = max(a_key, peak_key(tv[k], n, tie_last));
-    }
-  }
-  // the last aggregate of each lane: merged over the warp when every lane
-  // that holds one holds the same cluster
-  const int cref = __reduce_max_sync(ofdm::kFull, cur);
-  if (__all_sync(ofdm::kFull, cur == 0 || cur == cref)) {
-    if (cref) {
-      const int ws = __reduce_min_sync(ofdm::kFull, a_start);
-      const int wl = __reduce_max_sync(ofdm::kFull, a_last);
-      unsigned long long wk = a_key;
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) wk = max(wk, __shfl_xor_sync(ofdm::kFull, wk, d));
-      if ((threadIdx.x & 31) == 0) flush(sl, cref, p.E, ws, wl, wk);
-    }
-  } else if (cur) {
-    flush(sl, cur, p.E, a_start, a_last, a_key);
-  }
-  g.la = max(g.la, tile_max);
-  g.cnt += tile_new;
+  ofdm::fold_tile<kItems>(sl, tv, bits, n0, t, p.base, p.track_end, p.h, p.E, p.tie_last != 0,
+                          g);
 }
 
 // the table of stream b from its slots and the gate state after its end

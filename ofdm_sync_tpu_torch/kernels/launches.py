@@ -7,7 +7,8 @@ mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
 ``corr_energy``, ``primed``, and ``strided`` for a view read in place;
 kernels B, C, D: ``primed``, the
 carried-state mode, which for D is its magnitude mode; D's IQ mode with a
-halo or a global base: ``primed_iq``).  A run shows that it went through
+halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
+``int16`` for a chunk of int16 codes).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.
 """
 
@@ -15,11 +16,12 @@ from __future__ import annotations
 
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_metric
 from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
-from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import gate_events, minn_rtl_metric
+from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import gate_events, minn_rtl_metric, minn_rtl_step
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_metric
 
-#: one wrapper per kernel: A, B, C, D, E
-KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols)
+#: one wrapper per kernel: A, B, C, D, E, F
+KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols,
+                   minn_rtl_step)
 
 
 def reset_launch_counts() -> None:

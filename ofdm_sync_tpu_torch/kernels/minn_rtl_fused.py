@@ -29,6 +29,17 @@ Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_minn_tm.py:_tm_kernel`
   through `gate_events_capture`, which also reads side channels at each
   slot's peak.
 
+Kernel F, `minn_rtl_step` (`csrc/minn_rtl_step.cu`), is TPU kernel #2 in
+its streaming mode as the JAX package's `streaming_chunked.
+minn_rtl_fused_stream_step` runs it, one compiled program a chunk: the
+gate-carry rule, A's primed metric, B's carried gate walk and the history
+roll in one launch, one CTA a stream walking the chunk from its history,
+corr and above never in HBM, the table, the register, the gate carry and
+the new history in one allocation.  Its plain version,
+`minn_rtl_step_plain`, is the same function composed (`gate_continuation`,
+`minn_rtl_detect_fused`, `new_history`); on card tensors that composition
+launches A and B.
+
 Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
 tensor it launches its kernel (and counts the launch in ``.launches``, and
 the mode in ``.modes``, see `kernels.launches`); on a CPU tensor it runs the
@@ -511,3 +522,123 @@ def minn_rtl_detect_planar_fused(
                         max_events=max_events, valid_from=st.valid_from, tie="last",
                         emit_unclosed=False)
     return st, table
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: one Minn-RTL stream step in one launch
+# ---------------------------------------------------------------------------
+
+def gate_continuation(gate: torch.Tensor, base: int, hysteresis: int) -> torch.Tensor:
+    """The next chunk's gate_init from the last one's gate_out (batch, 2):
+    the gate continues iff the gap from its last above sample to the chunk
+    seam is within the hysteresis (JAX `streaming_chunked.py:395-399`);
+    then [la, 1], else [-1, 0]."""
+    h = max(int(hysteresis), 1)
+    la = gate[:, 0]
+    flag = ((la >= 0) & (base - la <= h)).to(torch.int32)
+    return torch.stack([torch.where(flag > 0, la, -1), flag], dim=1)
+
+
+def new_history(hist: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """The last H samples of [hist | chunk], in the history's dtype."""
+    H = hist.shape[-1]
+    chunk = chunk.to(hist.dtype)
+    if chunk.shape[-1] >= H:
+        return chunk[..., chunk.shape[-1] - H:].contiguous()
+    return torch.cat([hist, chunk], dim=-1)[..., -H:].contiguous()
+
+
+def minn_rtl_step_plain(chunk, hist, carry, gate, *, base_index, quarter_len: int,
+                        smooth_shift: int, threshold_value: int, threshold_frac_bits: int,
+                        hysteresis: int, max_events: int = 8, tie: str = "last",
+                        stream_len_global: int):
+    """Kernel F's function as a composition: the gate rule
+    (`gate_continuation`), `minn_rtl_detect_fused` primed with the state
+    (``emit_unclosed``, ``emit_state``) and the history roll (`new_history`).
+    On CPU tensors every part runs its plain PyTorch version; on card
+    tensors the detect launches kernels A (primed) and B (carried), the
+    composed step that `bench.block_latency` times beside F."""
+    base = host_index(base_index)
+    table, (carry_out, gate_out) = minn_rtl_detect_fused(
+        chunk, quarter_len=quarter_len, smooth_shift=smooth_shift,
+        threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+        hysteresis=hysteresis, max_events=max_events, tie=tie, emit_unclosed=True,
+        base_index=base, stream_len_global=stream_len_global,
+        shard_init=(hist, carry, gate_continuation(gate, base, hysteresis)), emit_state=True)
+    return table, carry_out, gate_out, new_history(hist, chunk)
+
+
+def minn_rtl_step(chunk, hist, carry, gate, *, base_index, quarter_len: int, smooth_shift: int,
+                  threshold_value: int, threshold_frac_bits: int, hysteresis: int,
+                  max_events: int = 8, tie: str = "last", stream_len_global: int):
+    """Kernel F.  chunk (C, batch, L) float32 or int16 codes (a view with
+    unit stride along time is read in place), the state's hist (C, batch,
+    H) float32 right-aligned, carry (batch,) float32 and gate (batch, 2)
+    int32 [last-above global index, cluster count]; ``base_index`` (a host
+    integer) the global index of sample 0, ``stream_len_global`` the close
+    horizon.  Returns (table `GateEvents` (batch, max_events) with global
+    indices, every gate that exists valid; carry_out (batch,); gate_out
+    (batch, 2); the new history (C, batch, H) float32)."""
+    _check_input(chunk)
+    C, batch, L = chunk.shape
+    if tuple(hist.shape[:-1]) != (C, batch) or hist.dim() != 3:
+        raise ValueError(f"hist must be ({C}, {batch}, H), got {tuple(hist.shape)}")
+    if tuple(carry.shape) != (batch,) or tuple(gate.shape) != (batch, 2):
+        raise ValueError(f"carry must be ({batch},) and gate ({batch}, 2), got "
+                         f"{tuple(carry.shape)} and {tuple(gate.shape)}")
+    if tie not in ("first", "last"):
+        raise ValueError("tie must be 'first' or 'last'")
+    if not 1 <= max_events <= MAX_EVENTS:
+        raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
+    kw = dict(base_index=base_index, quarter_len=quarter_len, smooth_shift=smooth_shift,
+              threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+              hysteresis=hysteresis, max_events=max_events, tie=tie,
+              stream_len_global=stream_len_global)
+    if check_kernel_device(chunk, hist, carry, gate) == "cpu":
+        return minn_rtl_step_plain(chunk, hist, carry, gate, **kw)
+    if (hist.dtype, carry.dtype, gate.dtype) != (torch.float32, torch.float32, torch.int32):
+        raise TypeError("kernel F takes a float32 hist and carry and an int32 gate")
+    if not (hist.is_contiguous() and carry.is_contiguous() and gate.is_contiguous()):
+        raise ValueError("kernel F needs a contiguous hist, carry and gate")
+    if L > 1 and chunk.stride(-1) != 1:
+        raise ValueError(f"kernel F reads a chunk with unit stride along time, got strides "
+                         f"{chunk.stride()}")
+    if C > 8:
+        raise ValueError(f"kernel F takes at most 4 branches, got {C // 2}")
+    Q = quarter_len
+    ring = lambda n: -(-n // 4) * 4  # noqa: E731
+    smem = 4 * (C * (ring(Q) + _A_TILE) + 2 * (ring(3 * Q) + _A_TILE))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+    base = host_index(base_index)
+    check_index_range(base, L)
+    Lg = int(stream_len_global)
+    if not 0 <= Lg < 2**31:
+        raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
+    H, E, dev = hist.shape[-1], max_events, chunk.device
+    o = _carve(dev, [("start", torch.int32, (batch, E)), ("close", torch.int32, (batch, E)),
+                     ("pidx", torch.int32, (batch, E)), ("pval", torch.float32, (batch, E)),
+                     ("count", torch.int32, (batch,)), ("valid", torch.bool, (batch, E)),
+                     ("closed", torch.bool, (batch, E)), ("overflow", torch.bool, (batch,)),
+                     ("carry_out", torch.float32, (batch,)), ("gate_out", torch.int32, (batch, 2)),
+                     ("hist", torch.float32, (C, batch, H))])
+    if batch:
+        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+        err = build.library().minn_rtl_step(
+            int(chunk.dtype == torch.int16), chunk.data_ptr(), chunk.stride(0), chunk.stride(1),
+            hist.data_ptr(), H, carry.data_ptr(), gate.data_ptr(), C, batch, L, Q, base, alpha,
+            max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
+            max(int(hysteresis), 1), E, int(tie == "last"), Lg,
+            *(o[f].data_ptr() for f in ("valid", "closed", "start", "close", "pidx", "pval",
+                                        "count", "overflow", "carry_out", "gate_out", "hist")),
+            _stream(chunk))
+        build.check(err, "minn_rtl_step")
+        _count(minn_rtl_step, *(("int16",) if chunk.dtype == torch.int16 else ()))
+    table = GateEvents(
+        valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
+        peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
+    return table, o["carry_out"], o["gate_out"], o["hist"]
+
+
+minn_rtl_step.launches = 0
+minn_rtl_step.modes = collections.Counter()

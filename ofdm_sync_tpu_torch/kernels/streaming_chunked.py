@@ -19,11 +19,14 @@ Two families, as in the JAX package:
 * `minn_rtl_stream_*` (one stream, (branches, 2, n) chunks): plain PyTorch
   on the state's device, no kernel; the carries are re-derived with tensor
   operations, and `minn_rtl_stream_finalize` gives the event table so far.
-* the fused steps `minn_rtl_fused_stream_step`, `aa_fused_stream_step`
-  and `zc_cfar_fused_stream_step` (batched): one detect call per chunk,
-  kernel A + B, C + B or D + B on a card, whose carried state (smoothing
-  register, gate carry) the kernels emit themselves; each chunk gives its
-  own table with global indices, and `stitch_chunk_tables` joins them.
+* the fused steps (batched), whose carried state (smoothing register,
+  gate carry) the kernels emit themselves: `minn_rtl_fused_stream_step`
+  is one launch of kernel F a chunk on a card (`kernels.minn_rtl_fused.minn_rtl_step`:
+  the gate rule, the metric, the gate events and the history roll in one
+  pass, as the JAX step is one compiled program); `aa_fused_stream_step`
+  and `zc_cfar_fused_stream_step` are one detect call a chunk, kernels
+  C + B or D + B.  Each chunk gives its own table with global indices,
+  and `stitch_chunk_tables` joins them.
 
 ``base`` (the global index of the next sample) is a host (CPU) int32
 tensor in every state: the step knows it (base + chunk length), so no step
@@ -41,7 +44,11 @@ import numpy as np
 import torch
 
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_detect_fused
-from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import minn_rtl_detect_fused
+from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
+    gate_continuation,
+    minn_rtl_step,
+    new_history,
+)
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_cfar_detect
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
 from ofdm_sync_tpu_torch.ops.windows import linear_recurrence, running_sum_stream
@@ -269,34 +276,15 @@ def _gate_carry(batch: int, device) -> torch.Tensor:
     return g
 
 
-def _gate_init(gate: torch.Tensor, base: int, hysteresis: int) -> torch.Tensor:
-    """The next chunk's gate_init from the last one's gate_out: the gate
-    continues iff the gap from its last above sample to the chunk seam is
-    within the hysteresis (`streaming_chunked.py:395-399`); then [la, 1],
-    else [-1, 0]."""
-    h = max(int(hysteresis), 1)
-    la = gate[:, 0]
-    flag = ((la >= 0) & (base - la <= h)).to(torch.int32)
-    return torch.stack([torch.where(flag > 0, la, -1), flag], dim=1)
-
-
-def _new_hist(hist: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
-    """The last H samples of [hist | chunk]."""
-    H = hist.shape[-1]
-    if chunk.shape[-1] >= H:
-        return chunk[..., chunk.shape[-1] - H:].contiguous()
-    return torch.cat([hist, chunk], dim=-1)[..., -H:].contiguous()
-
-
 def _hist_width(n: int) -> int:
     """History width rounded up to 128, as the TPU kernels keep it."""
     return max(((n + 127) // 128) * 128, 128)
 
 
 class MinnRTLFusedStreamState(NamedTuple):
-    """Carried state of the fused Minn-RTL streaming receiver.  The
-    smoothing register and the gate carry are emitted by kernels A and B
-    themselves (`minn_rtl_detect_fused(emit_state=True)`)."""
+    """Carried state of the fused Minn-RTL streaming receiver.  Kernel F
+    emits all of it (`minn_rtl_fused.minn_rtl_step`): the new history, the
+    smoothing register and the gate carry."""
 
     hist: torch.Tensor   # (C, batch, H) channel-leading planar IQ tail, float32
     carry: torch.Tensor  # (batch,) float32 -- smoothing register at chunk end
@@ -315,39 +303,37 @@ def minn_rtl_fused_stream_init(params: MinnRTLStreamParams, batch: int, branches
     )
 
 
+def minn_step_kwargs(params: MinnRTLStreamParams, base: int) -> dict:
+    """The keyword arguments of kernel F (`minn_rtl_step`) and of its plain
+    composition for a chunk whose first sample has the global index
+    ``base``: the stream's parameters against the open-ended horizon."""
+    return dict(base_index=base, quarter_len=params.quarter_len,
+                smooth_shift=params.smooth_shift, threshold_value=params.threshold_value,
+                threshold_frac_bits=params.threshold_frac_bits, hysteresis=params.hysteresis,
+                max_events=params.max_events, tie=params.tie, stream_len_global=EPOCH_HORIZON)
+
+
 def minn_rtl_fused_stream_step(state: MinnRTLFusedStreamState, chunk: torch.Tensor, *,
                                params: MinnRTLStreamParams):
-    """Process one chunk through the fused detector (kernels A + B on a
-    card, their plain versions on the CPU).
+    """Process one chunk through the fused detector: one launch of kernel
+    F on a card (`kernels.minn_rtl_fused.minn_rtl_step`), its plain composition on the
+    CPU.
 
-    chunk: (C, batch, chunk_len) channel-leading planar, converted to
-    float32.  Returns ``(new_state, GateEvents)``: the chunk's own event
+    chunk: (C, batch, chunk_len) channel-leading planar float32 or int16
+    codes, read as it is (a view with unit stride along time too).  The
+    state is functional: the step returns a fresh history, register and
+    gate carry and leaves the old state's tensors unchanged.  Returns
+    ``(new_state, GateEvents)``: the chunk's own event
     table with global indices.  A gate still open at the chunk edge
     surfaces as a trailing event (against the open-ended `EPOCH_HORIZON`
     every gate finalizes "closed", unclipped); the next chunk continues it
     through the gate carry, and `stitch_chunk_tables` joins the pieces and
     decides closed-ness against the stream end."""
-    C, batch, Lc = chunk.shape
-    chunk = chunk.to(torch.float32).contiguous()
     base = int(state.base)
-    table, (carry_out, gate_out) = minn_rtl_detect_fused(
-        chunk,
-        quarter_len=params.quarter_len,
-        smooth_shift=params.smooth_shift,
-        threshold_value=params.threshold_value,
-        threshold_frac_bits=params.threshold_frac_bits,
-        hysteresis=params.hysteresis,
-        max_events=params.max_events,
-        tie=params.tie,
-        emit_unclosed=True,
-        base_index=base,
-        stream_len_global=EPOCH_HORIZON,
-        shard_init=(state.hist, state.carry, _gate_init(state.gate, base, params.hysteresis)),
-        emit_state=True,
-    )
-    return MinnRTLFusedStreamState(
-        hist=_new_hist(state.hist, chunk), carry=carry_out, gate=gate_out,
-        base=_base(base + Lc)), table
+    table, carry, gate, hist = minn_rtl_step(chunk, state.hist, state.carry, state.gate,
+                                             **minn_step_kwargs(params, base))
+    return MinnRTLFusedStreamState(hist=hist, carry=carry, gate=gate,
+                                   base=_base(base + chunk.shape[-1])), table
 
 
 def minn_rtl_fused_stream_rebase(state: MinnRTLFusedStreamState, *,
@@ -466,8 +452,9 @@ def aa_fused_stream_step(state: AAFusedStreamState, chunk: torch.Tensor, *, half
         chunk, half_len=half_len, threshold=threshold, hysteresis=hysteresis,
         max_events=max_events, tie=tie, emit_unclosed=True, base_index=base,
         stream_len_global=EPOCH_HORIZON,
-        shard_init=(state.hist, _gate_init(state.gate, base, hysteresis)), emit_state=True)
-    return AAFusedStreamState(hist=_new_hist(state.hist, chunk), gate=gate_out,
+        shard_init=(state.hist, gate_continuation(state.gate, base, hysteresis)),
+        emit_state=True)
+    return AAFusedStreamState(hist=new_history(state.hist, chunk), gate=gate_out,
                               base=_base(base + chunk.shape[-1])), (table, P_pk, M_pk)
 
 
@@ -515,8 +502,9 @@ def zc_cfar_fused_stream_step(state: ZCCFARFusedStreamState, chunk: torch.Tensor
         threshold_frac_bits=threshold_frac_bits, min_corr_mag=min_corr_mag,
         hysteresis=hysteresis, max_events=max_events, tie=tie, emit_unclosed=True,
         base_index=base, stream_len_global=EPOCH_HORIZON,
-        shard_init=(state.hist, _gate_init(state.gate, base, hysteresis)), emit_state=True)
-    return ZCCFARFusedStreamState(hist=_new_hist(state.hist, chunk), gate=gate_out,
+        shard_init=(state.hist, gate_continuation(state.gate, base, hysteresis)),
+        emit_state=True)
+    return ZCCFARFusedStreamState(hist=new_history(state.hist, chunk), gate=gate_out,
                                   base=_base(base + chunk.shape[-1])), table
 
 

@@ -63,6 +63,7 @@ from ofdm_sync_tpu_torch.kernels.matched_filter import MAX_TAPS, matched_filter_
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
     _check_input,
     _planar_view,
+    gate_continuation,
     metric_halo,
     minn_rtl_detect_fused,
     minn_rtl_metric_planar_fused,
@@ -73,7 +74,6 @@ from ofdm_sync_tpu_torch.kernels.streaming import (
     cfar_gate,
     minn_rtl_metric_planar,
 )
-from ofdm_sync_tpu_torch.kernels.streaming_chunked import _gate_init
 from ofdm_sync_tpu_torch.kernels.zc_fused import (
     default_threshold,
     zc_cfar_detect,
@@ -593,11 +593,11 @@ def sharded_sc_metric(x: torch.Tensor, mesh: StreamMesh, n_fft: int):
 def _gate_from_tail(above_tail: torch.Tensor, first_index: int, h: int) -> torch.Tensor:
     """Kernel B's gate_init at ``first_index`` from the above bits of the h
     samples before it (`shard.py:_gate_init_from_tail`): the last above
-    index la, as the gate carry [la, 1] of `streaming_chunked._gate_init`
+    index la, as the gate carry [la, 1] of `minn_rtl_fused.gate_continuation`
     ([-1, 0] where none)."""
     gi = first_index - h + torch.arange(h, device=above_tail.device)
     la = torch.where(above_tail, gi, -1).amax(dim=-1).to(torch.int32)
-    return _gate_init(torch.stack([la, torch.zeros_like(la)], dim=-1), first_index, h)
+    return gate_continuation(torch.stack([la, torch.zeros_like(la)], dim=-1), first_index, h)
 
 
 def minn_halo_width(quarter_len: int, smooth_shift: int, hysteresis: int) -> int:

@@ -180,14 +180,24 @@ def summary(times) -> dict:
             "n": len(times)}
 
 
+#: calls inside the profiler's session before `device_window` opens its
+#: window (without them, one window over 100 single-kernel calls on an
+#: H100 recorded 98 device events; with them, every window recorded all)
+_TRACER_WARM_CALLS = 5
+
+
 def device_window(fn, n: int, launches_per_call: int) -> dict:
     """torch.profiler over ``n`` back-to-back calls of fn() (after one
-    warm-up call), ended by a synchronize: the window's wall time, the
-    device time of each kernel by name with its count, the share of the
-    window in which no device work ran, and the host wall of the same
-    ``n`` calls without the profiler (its cost).  Where the profiler
-    records fewer kernel events than ``n * launches_per_call``, the device
-    fields read "not measured" with the reason instead of a number."""
+    warm-up call, and _TRACER_WARM_CALLS more inside the profiler's session
+    before the window opens, so that the tracer runs when it does), ended by a
+    synchronize: the window's wall time, the device time of each kernel by
+    name with its count (the device events that start and end inside the
+    window), the share of the window in which no device work ran, the
+    host's kernel-launch calls inside the window (``host_launches``) and
+    the host wall of the same ``n`` calls without the profiler (its cost).
+    Where the profiler records fewer kernel events than ``n *
+    launches_per_call``, the device fields read "not measured" with the
+    reason instead of a number."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -197,6 +207,9 @@ def device_window(fn, n: int, launches_per_call: int) -> dict:
     bare_ms = (time.perf_counter() - t0) * 1e3
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(_TRACER_WARM_CALLS):
+            fn()
+        torch.cuda.synchronize()
         with torch.profiler.record_function("device_window"):
             for _ in range(n):
                 fn()
@@ -205,16 +218,19 @@ def device_window(fn, n: int, launches_per_call: int) -> dict:
     win = [e for e in events if e.name == "device_window"
            and e.device_type == torch.autograd.DeviceType.CPU]
     lo, hi = win[0].time_range.start, win[0].time_range.end
+    inside = [e for e in events if lo <= e.time_range.start and e.time_range.end <= hi]
     spans, by_kernel = [], {}
-    for e in events:  # the device's work, not the window's own annotation
+    for e in inside:  # the device's work, not the window's own annotation
         if e.device_type != torch.autograd.DeviceType.CUDA or e.name == "device_window":
             continue
         spans.append((e.time_range.start, e.time_range.end))
         k = by_kernel.setdefault(e.name, {"ms": 0.0, "count": 0})
         k["ms"] += e.time_range.elapsed_us() / 1e3
         k["count"] += 1
+    host_launches = sum(1 for e in inside if e.device_type == torch.autograd.DeviceType.CPU
+                        and "LaunchKernel" in e.name)
     out = {"calls": n, "window_ms": (hi - lo) / 1e3, "bare_ms": bare_ms,
-           "device_events": len(spans)}
+           "device_events": len(spans), "host_launches": host_launches}
     if len(spans) < n * launches_per_call:
         reason = (f"not measured: the profiler recorded {len(spans)} device events for "
                   f"{n} calls of {launches_per_call} kernels")

@@ -49,6 +49,16 @@ def b_work(above, gated, E=8, n_extra=0):
     return nbytes, 2 * batch * L + 10 * int(gated)
 
 
+def f_work(batch, L, C, itemsize, hist_len, gated, E=8):
+    """Kernel F, one Minn-RTL stream step: the chunk and the history read
+    once, the new history, the table and the state (register, gate carry)
+    written once; kernel A's flops per sample and kernel B's (corr and
+    above stay on the chip, so no byte of them is counted)."""
+    nbytes = (batch * L * C * itemsize + 2 * C * batch * hist_len * 4
+              + batch * E * 18 + 2 * batch * (4 + 8) + 8 * batch)
+    return nbytes, batch * L * (4 * C + 12) + 2 * batch * L + 10 * int(gated)
+
+
 def c_work(batch, L, C, itemsize, out_bytes, hist_len=0):
     """Kernel C: each sample read once, each output written once; per
     sample per branch 12 flops of products and sums, ~10 more for the

@@ -249,4 +249,5 @@ def test_cpu_path_counts_no_launch(rng):
     A.aa_detect_fused(torch.from_numpy(_channel_leading(_stimulus(rng)[None])), half_len=128)
     A.aa_metric_planar(torch.zeros((4, 1, 300)), half_len=16)
     assert launch_counts() == dict.fromkeys(
-        ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols"), 0)
+        ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols",
+         "minn_rtl_step"), 0)

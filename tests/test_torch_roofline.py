@@ -42,6 +42,20 @@ def test_e_flops_are_the_cheaper_fft_convolution():
     assert round(flops / RL.FP32_FLOP_PER_S * 1e3, 3) == 0.092
 
 
+def test_f_work_is_the_step_without_corr_and_above():
+    """Kernel F's bytes: the chunk, the history in and out, the table and
+    the state, none of A's corr / above that B reads back; at batch 1 x
+    4096 x 2 branches (f32, a 1,536-sample history) 114,864 B, 0.0343 us."""
+    nbytes, flops = RL.f_work(1, 4096, 4, 4, 1536, gated=10)
+    assert nbytes == 4096 * 16 + 2 * 4 * 1536 * 4 + 8 * 18 + 24 + 8 == 114_864
+    assert flops == 4096 * (28 + 2) + 100
+    assert round(RL.bound(nbytes, flops)[0] * 1e3, 4) == 0.0343
+    above = torch.zeros((512, 16384), dtype=torch.bool)
+    composed = RL.bound_sum((RL.a_work(512, 16384, 4, 4, 5, hist_len=1536),
+                             RL.b_work(above, 0)))[0]
+    assert RL.bound(*RL.f_work(512, 16384, 4, 4, 1536, 0))[0] < composed
+
+
 def test_bound_sum_and_gated_samples():
     above = torch.zeros((2, 100), dtype=torch.bool)
     above[0, 10] = above[1, 50] = above[1, 52] = True
