@@ -1,0 +1,6 @@
+"""device_idle.sweep: the share of the traced window in which no device event
+ran (%)."""
+
+
+def read(run):
+    return run.idle()
