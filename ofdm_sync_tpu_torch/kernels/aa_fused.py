@@ -56,6 +56,10 @@ from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
 )
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar as _plain
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
+from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, span, wrapper_spans
+
+#: the spans of kernel C's wrapper (`utils.profiling.span`)
+_C_SPANS = wrapper_spans("aa_metric")
 
 
 class AAMetricRows(NamedTuple):
@@ -78,39 +82,44 @@ def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
     ``base_index`` (a host integer) is the global index of sample 0 (valid
     from ``base + n >= L``), ``hist_init`` (C, batch, <=H) float32 the
     samples before it, right-aligned."""
-    _check_input(x)
-    C, batch, L = x.shape
-    lag = half_len
-    if lag < 1:
-        raise ValueError("half_len must be positive")
-    base = host_index(base_index)
-    hist = _history(hist_init, (C, batch), "hist_init")
-    if check_kernel_device(x, *(() if hist is None else (hist,))) == "cpu":
-        st = _plain(_planar_view(x), lag, base_index=base,
-                    hist=None if hist is None else _planar_view(hist))
-        if threshold is None:
-            return AAMetricRows(st.P_re, st.P_im, st.R, None, None, None)
-        track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, threshold, base)
-        return AAMetricRows(st.P_re, st.P_im, None, M, track, above)
-    if not x.is_contiguous():
-        raise ValueError("kernel C needs a contiguous input")
-    check_index_range(base, L)
-    new = lambda dt: torch.empty((batch, L), dtype=dt, device=x.device)  # noqa: E731
-    detect = threshold is not None
-    p_re, p_im = new(torch.float32), new(torch.float32)
-    r = None if detect else new(torch.float32)
-    m, track, above = ((new(torch.float32), new(torch.float32), new(torch.uint8))
-                       if detect else (None, None, None))
-    if batch and L:
-        err = build.library().aa_metric(
-            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag,
-            0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
-            threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r), _ptr(track),
-            _ptr(m), _ptr(above), _stream(x))
-        build.check(err, "aa_metric")
-        _count(aa_metric, *(("primed",) if hist is not None or base != 0 else ()))
-    return AAMetricRows(p_re, p_im, r, m, track,
-                        None if above is None else above.view(torch.bool))
+    with span(_C_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_C_SPANS.prep) if x.is_cuda else NO_SPAN:
+            _check_input(x)
+            C, batch, L = x.shape
+            lag = half_len
+            if lag < 1:
+                raise ValueError("half_len must be positive")
+            base = host_index(base_index)
+            hist = _history(hist_init, (C, batch), "hist_init")
+            if check_kernel_device(x, *(() if hist is None else (hist,))) == "cpu":
+                st = _plain(_planar_view(x), lag, base_index=base,
+                            hist=None if hist is None else _planar_view(hist))
+                if threshold is None:
+                    return AAMetricRows(st.P_re, st.P_im, st.R, None, None, None)
+                track, M, above = aa_detect_step(st.P_re, st.P_im, st.R, lag, threshold, base)
+                return AAMetricRows(st.P_re, st.P_im, None, M, track, above)
+            if not x.is_contiguous():
+                raise ValueError("kernel C needs a contiguous input")
+            check_index_range(base, L)
+            new = lambda dt: torch.empty((batch, L), dtype=dt, device=x.device)  # noqa: E731
+            detect = threshold is not None
+            with span(_C_SPANS.alloc):
+                p_re, p_im = new(torch.float32), new(torch.float32)
+                r = None if detect else new(torch.float32)
+                m, track, above = ((new(torch.float32), new(torch.float32), new(torch.uint8))
+                                   if detect else (None, None, None))
+        with span(_C_SPANS.launch):
+            if batch and L:
+                err = build.library().aa_metric(
+                    int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag,
+                    0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
+                    threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r), _ptr(track),
+                    _ptr(m), _ptr(above), _stream(x))
+                build.check(err, "aa_metric")
+                _count(aa_metric, *(("primed",) if hist is not None or base != 0 else ()))
+        return AAMetricRows(p_re, p_im, r, m, track,
+                            None if above is None else above.view(torch.bool))
 
 
 aa_metric.launches = 0

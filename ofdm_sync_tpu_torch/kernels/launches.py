@@ -10,6 +10,8 @@ carried-state mode, which for D is its magnitude mode; D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 ``int16`` for a chunk of int16 codes).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.
+Each wrapper's spans carry its name too (`utils.profiling.wrapper_spans`),
+so a span, a launch count and a kernel line up.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import _I32_LIMIT, _stream
 from ofdm_sync_tpu_torch.ops.channel import fft_convolve_full
+from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, span, wrapper_spans
 
 #: kernel E's overlap: block k of a stream reads samples [kV - DISCARD,
 #: kV + V) and writes outputs [kV, kV + V), V = FFT_SIZE - DISCARD
@@ -39,6 +40,8 @@ MAX_TAPS = DISCARD + 1
 FFT_SIZE = 8192
 #: the TPU kernel's matmul precisions (`pallas_mf.py:276-280`)
 PRECISIONS = ("highest", "bf16x3", "default")
+#: the spans of kernel E's wrapper, also an entry point (`utils.profiling.span`)
+_E_SPANS = wrapper_spans("matched_filter_ols")
 #: taps spectra kept on their devices, most recent first: (host taps,
 #: device, spectrum)
 _SPECTRA: list = []
@@ -133,37 +136,43 @@ def matched_filter_ols(x: torch.Tensor, taps, out_len: int | None = None, *,
     262,144 x 2 streams, and larger nb leaves short inputs fewer CTAs).
     Every block is computed on its own, so every ``precision`` and ``nb``
     gives bit-identical output."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if nb < 1:
-        raise ValueError(f"nb must be >= 1, got {nb}")
-    if x.dim() != 3 or x.shape[0] % 2 or x.dtype != torch.float32:
-        raise ValueError(f"expected float32 (re, im) plane pairs (C, batch, L), got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    host_taps = not isinstance(taps, torch.Tensor) or taps.device.type == "cpu"
-    h = planar_taps(taps, "cpu" if host_taps else x.device)
-    C, batch, L = x.shape
-    T = h.shape[-1]
-    if not 1 <= T <= MAX_TAPS:
-        raise ValueError(f"matched_filter_ols takes 1 to {MAX_TAPS} taps (got {T})")
-    Lc = L + T - 1 if out_len is None else int(out_len)
-    if (check_kernel_device(x) if host_taps else check_kernel_device(x, h)) == "cpu":
-        return matched_filter_plain(x, h, Lc)
-    if not x.is_contiguous():
-        raise ValueError("kernel E needs a contiguous input")
-    V = FFT_SIZE - DISCARD
-    if max(L, Lc) >= _I32_LIMIT or C // 2 * batch * -(-Lc // (V * nb)) >= _I32_LIMIT:
-        raise ValueError("kernel E takes < 2^31 samples a stream and < 2^31 CTAs")
-    out = torch.empty((C, batch, Lc), dtype=torch.float32, device=x.device)
-    if out.numel():
-        spec = _host_spectrum(h, x.device) if host_taps else taps_spectrum(h)
-        tw = twiddle_table(x.device)
-        err = build.library().matched_filter_f32(x.data_ptr(), spec.data_ptr(), tw.data_ptr(),
-                                                 C, batch, L, T, Lc, nb, out.data_ptr(),
-                                                 _stream(x))
-        build.check(err, "matched_filter_ols")
-        matched_filter_ols.launches += 1
-    return out
+    with span(_E_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_E_SPANS.prep) if x.is_cuda else NO_SPAN:
+            if precision not in PRECISIONS:
+                raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+            if nb < 1:
+                raise ValueError(f"nb must be >= 1, got {nb}")
+            if x.dim() != 3 or x.shape[0] % 2 or x.dtype != torch.float32:
+                raise ValueError(f"expected float32 (re, im) plane pairs (C, batch, L), got "
+                                 f"{tuple(x.shape)} {x.dtype}")
+            host_taps = not isinstance(taps, torch.Tensor) or taps.device.type == "cpu"
+            h = planar_taps(taps, "cpu" if host_taps else x.device)
+            C, batch, L = x.shape
+            T = h.shape[-1]
+            if not 1 <= T <= MAX_TAPS:
+                raise ValueError(f"matched_filter_ols takes 1 to {MAX_TAPS} taps (got {T})")
+            Lc = L + T - 1 if out_len is None else int(out_len)
+            if (check_kernel_device(x) if host_taps else check_kernel_device(x, h)) == "cpu":
+                return matched_filter_plain(x, h, Lc)
+            if not x.is_contiguous():
+                raise ValueError("kernel E needs a contiguous input")
+            V = FFT_SIZE - DISCARD
+            if max(L, Lc) >= _I32_LIMIT or C // 2 * batch * -(-Lc // (V * nb)) >= _I32_LIMIT:
+                raise ValueError("kernel E takes < 2^31 samples a stream and < 2^31 CTAs")
+            with span(_E_SPANS.alloc):
+                out = torch.empty((C, batch, Lc), dtype=torch.float32, device=x.device)
+            if out.numel():
+                spec = _host_spectrum(h, x.device) if host_taps else taps_spectrum(h)
+                tw = twiddle_table(x.device)
+        with span(_E_SPANS.launch):
+            if out.numel():
+                err = build.library().matched_filter_f32(x.data_ptr(), spec.data_ptr(),
+                                                         tw.data_ptr(), C, batch, L, T, Lc, nb,
+                                                         out.data_ptr(), _stream(x))
+                build.check(err, "matched_filter_ols")
+                matched_filter_ols.launches += 1
+        return out
 
 
 matched_filter_ols.launches = 0

@@ -44,7 +44,9 @@ Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
 tensor it launches its kernel (and counts the launch in ``.launches``, and
 the mode in ``.modes``, see `kernels.launches`); on a CPU tensor it runs the
 plain PyTorch version (`kernels.streaming`, `ops.detect`); any other device
-raises.  There is no fallback from one to the other.
+raises.  There is no fallback from one to the other.  Under torch.profiler
+each wrapper records its spans (`utils.profiling.wrapper_spans`: the call,
+and on the card its ``.prep`` with ``.alloc``, then its ``.launch``).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from ofdm_sync_tpu_torch.ops.detect import (
     empty_table,
     extract_gate_events_carried,
 )
+from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, SPAN_PREFIX, span, wrapper_spans
 
 #: kernel B's event-slot capacity
 MAX_EVENTS = 128
@@ -78,6 +81,13 @@ _A_TILE, _B_TILE = 1024, 4096
 #: the kernels index samples in int32 and walk up to one tile past the
 #: end: base + L stays below this
 _I32_LIMIT = 2**31 - 2 * _B_TILE
+
+#: the spans of kernels A, B and F's wrappers (`utils.profiling.span`) and
+#: of the batch detector
+_A_SPANS = wrapper_spans("minn_rtl_metric")
+_B_SPANS = wrapper_spans("gate_events")
+_F_SPANS = wrapper_spans("minn_rtl_step")
+_DETECT_SPAN = SPAN_PREFIX + "minn_rtl_detect_fused"
 
 #: kernel A's output modes: name -> outputs written
 _A_MODES = {
@@ -201,69 +211,78 @@ def _minn_metric(
     emit_state: bool = False,
 ) -> MinnMetricRows:
     """Kernel A in one of its output modes (`_A_MODES`), plain or primed."""
-    _check_input(x)
-    C, batch, L = x.shape
-    Q = quarter_len
-    base = host_index(base_index)
-    scan = mode != "corr_energy"
-    if not scan and (carry_init is not None or emit_state):
-        raise ValueError("the corr/energy mode has no smoothing register")
-    hist = _history(hist_init, (C, batch), "hist_init")
-    if carry_init is not None and tuple(carry_init.shape) != (batch,):
-        raise ValueError(f"carry_init must be ({batch},), got {tuple(carry_init.shape)}")
-    metric = dict(quarter_len=Q, smooth_shift=smooth_shift, threshold_value=threshold_value,
-                  threshold_frac_bits=threshold_frac_bits)
-    if check_kernel_device(x, *(t for t in (hist, carry_init) if t is not None)) == "cpu":
-        hist_p = None if hist is None else _planar_view(hist)
-        if not scan:
-            corr, energy = minn_rtl_corr_energy_planar(_planar_view(x), quarter_len=Q,
-                                                       hist_init=hist_p)
-            return MinnMetricRows(corr, None, energy, None, None)
-        st = minn_rtl_metric_planar(_planar_view(x), **metric, base_index=base,
-                                    hist_init=hist_p, carry_init=carry_init)
-        carry_out = None
-        if emit_state:
-            carry_out = (st.smooth_metric[:, -1] if L else
-                         torch.zeros(batch) if carry_init is None else carry_init.float())
-        wanted = _A_MODES[mode]
-        pick = lambda name, t: t if name in wanted else None  # noqa: E731
-        return MinnMetricRows(st.corr_positive, pick("smooth", st.smooth_metric),
-                              pick("energy", st.energy_total), st.above_threshold, carry_out)
-    if L > 1 and x.stride(-1) != 1:
-        raise ValueError(f"kernel A reads a view with unit stride along time, got strides "
-                         f"{x.stride()}")
-    if C > 8:
-        raise ValueError(f"kernel A takes at most 4 branches, got {C // 2}")
-    ring = lambda n: -(-n // 4) * 4  # noqa: E731
-    smem = 4 * (C * ring(Q + _A_TILE) + 2 * ring(3 * Q + _A_TILE))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
-    check_index_range(base, L)
-    dev = x.device
-    out = {name: torch.empty((batch, L), dtype=torch.bool if name == "above" else torch.float32,
-                             device=dev) for name in _A_MODES[mode]}
-    carry_out = out["carry_out"] = torch.empty(batch, device=dev) if emit_state else None
-    carry = None if carry_init is None else carry_init.to(torch.float32).contiguous()
-    if emit_state and not L:  # no sample: the register passes through
-        if carry is None:
-            carry_out.zero_()
-        else:
-            carry_out.copy_(carry)
-    if batch and L:
-        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
-        err = build.library().minn_rtl_metric(
-            int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch, L,
-            x.stride(0), x.stride(1), Q,
-            metric_halo(Q, smooth_shift), 0 if hist is None else hist.shape[-1], int(scan), base,
-            alpha, max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
-            *(_ptr(out.get(f)) for f in ("corr", "smooth", "energy", "above", "carry_out")),
-            _stream(x))
-        build.check(err, "minn_rtl_metric")
-        primed = hist is not None or carry is not None or base != 0 or emit_state
-        _count(minn_rtl_metric, mode, *(("primed",) if primed else ()),
-               *(("strided",) if not x.is_contiguous() else ()))
-    return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"), out.get("above"),
-                          carry_out)
+    with span(_A_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_A_SPANS.prep) if x.is_cuda else NO_SPAN:
+            _check_input(x)
+            C, batch, L = x.shape
+            Q = quarter_len
+            base = host_index(base_index)
+            scan = mode != "corr_energy"
+            if not scan and (carry_init is not None or emit_state):
+                raise ValueError("the corr/energy mode has no smoothing register")
+            hist = _history(hist_init, (C, batch), "hist_init")
+            if carry_init is not None and tuple(carry_init.shape) != (batch,):
+                raise ValueError(f"carry_init must be ({batch},), got {tuple(carry_init.shape)}")
+            metric = dict(quarter_len=Q, smooth_shift=smooth_shift,
+                          threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits)
+            if check_kernel_device(x, *(t for t in (hist, carry_init) if t is not None)) == "cpu":
+                hist_p = None if hist is None else _planar_view(hist)
+                if not scan:
+                    corr, energy = minn_rtl_corr_energy_planar(_planar_view(x), quarter_len=Q,
+                                                               hist_init=hist_p)
+                    return MinnMetricRows(corr, None, energy, None, None)
+                st = minn_rtl_metric_planar(_planar_view(x), **metric, base_index=base,
+                                            hist_init=hist_p, carry_init=carry_init)
+                carry_out = None
+                if emit_state:
+                    carry_out = (st.smooth_metric[:, -1] if L else
+                                 torch.zeros(batch) if carry_init is None else carry_init.float())
+                wanted = _A_MODES[mode]
+                pick = lambda name, t: t if name in wanted else None  # noqa: E731
+                return MinnMetricRows(st.corr_positive, pick("smooth", st.smooth_metric),
+                                      pick("energy", st.energy_total), st.above_threshold,
+                                      carry_out)
+            if L > 1 and x.stride(-1) != 1:
+                raise ValueError(f"kernel A reads a view with unit stride along time, got "
+                                 f"strides {x.stride()}")
+            if C > 8:
+                raise ValueError(f"kernel A takes at most 4 branches, got {C // 2}")
+            ring = lambda n: -(-n // 4) * 4  # noqa: E731
+            smem = 4 * (C * ring(Q + _A_TILE) + 2 * ring(3 * Q + _A_TILE))
+            if smem > _SMEM_LIMIT:
+                raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+            check_index_range(base, L)
+            dev = x.device
+            with span(_A_SPANS.alloc):
+                out = {name: torch.empty((batch, L), dtype=torch.bool if name == "above"
+                                         else torch.float32, device=dev)
+                       for name in _A_MODES[mode]}
+                carry_out = out["carry_out"] = (torch.empty(batch, device=dev) if emit_state
+                                                else None)
+            carry = None if carry_init is None else carry_init.to(torch.float32).contiguous()
+            alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+        with span(_A_SPANS.launch):
+            if emit_state and not L:  # no sample: the register passes through
+                if carry is None:
+                    carry_out.zero_()
+                else:
+                    carry_out.copy_(carry)
+            if batch and L:
+                err = build.library().minn_rtl_metric(
+                    int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch,
+                    L, x.stride(0), x.stride(1), Q, metric_halo(Q, smooth_shift),
+                    0 if hist is None else hist.shape[-1], int(scan), base, alpha,
+                    max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
+                    *(_ptr(out.get(f)) for f in ("corr", "smooth", "energy", "above",
+                                                 "carry_out")),
+                    _stream(x))
+                build.check(err, "minn_rtl_metric")
+                primed = hist is not None or carry is not None or base != 0 or emit_state
+                _count(minn_rtl_metric, mode, *(("primed",) if primed else ()),
+                       *(("strided",) if not x.is_contiguous() else ()))
+        return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"),
+                              out.get("above"), carry_out)
 
 
 def minn_rtl_metric(
@@ -389,65 +408,79 @@ def gate_events_capture(
 def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0,
                  tie="first", emit_unclosed=True, base_index=0, stream_len_global=None,
                  gate_init=None, emit_state=False):
-    if tie not in ("first", "last"):
-        raise ValueError("tie must be 'first' or 'last'")
-    if not 1 <= max_events <= MAX_EVENTS:
-        raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
-    if above.shape != track.shape or above.dim() != 2:
-        raise ValueError("above and track must both be (batch, L)")
-    if any(e.shape != track.shape for e in extras):
-        raise ValueError("every captured channel must be (batch, L) like track")
-    batch, L = above.shape
-    if gate_init is not None and tuple(gate_init.shape) != (batch, 2):
-        raise ValueError(f"gate_init must be ({batch}, 2), got {tuple(gate_init.shape)}")
-    base = host_index(base_index)
-    Lg = base + L if stream_len_global is None else int(stream_len_global)
-    kw = dict(hysteresis=hysteresis, max_events=max_events, valid_from=valid_from,
-              tie=tie, emit_unclosed=emit_unclosed)
-    carried = gate_init is not None or base != 0 or stream_len_global is not None or emit_state
-    tensors = (above, track, *extras, *(() if gate_init is None else (gate_init,)))
-    if check_kernel_device(*tensors) == "cpu":
-        return extract_gate_events_carried(above, track, extras, base_index=base,
-                                           stream_len_global=Lg, gate_init=gate_init, **kw)
-    if above.dtype != torch.bool or any(t.dtype != torch.float32 for t in (track, *extras)):
-        raise TypeError("kernel B takes bool above and float32 track and channels")
-    if not all(t.is_contiguous() for t in (above, track, *extras)):
-        raise ValueError("kernel B needs contiguous inputs")
-    check_index_range(base, L)
-    if not 0 <= Lg < 2**31:
-        raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
-    dev, E = track.device, max_events
-    if batch == 0:
-        return (empty_table((0,), max_events, track.dtype, dev),
-                torch.empty((0, len(extras), E), device=dev) if extras else None,
-                torch.empty((0, 2), dtype=torch.int32, device=dev) if emit_state else None)
-    ginit = gate_init
-    if ginit is not None and (ginit.dtype != torch.int32 or not ginit.is_contiguous()):
-        ginit = ginit.to(torch.int32).contiguous()
-    # one allocation: the table, the captured channels, gate_out, and the
-    # scratch of the span-parallel mode (span summaries, merged slots)
-    span_cap = max(1, -(-L // _B_TILE))
-    o = _carve(dev, [("start", torch.int32, (batch, E)), ("close", torch.int32, (batch, E)),
-                     ("pidx", torch.int32, (batch, E)), ("pval", torch.float32, (batch, E)),
-                     ("count", torch.int32, (batch,)), ("valid", torch.bool, (batch, E)),
-                     ("closed", torch.bool, (batch, E)), ("overflow", torch.bool, (batch,)),
-                     ("scratch", None, batch * (16 * span_cap + 16 * E + 4))]
-               + [("cap", torch.float32, (batch, len(extras), E))] * bool(extras)
-               + [("gate_out", torch.int32, (batch, 2))] * bool(emit_state))
-    ex = [e.data_ptr() for e in extras] + [None] * (3 - len(extras))
-    err = build.library().gate_events_f32(
-        above.data_ptr(), track.data_ptr(), batch, L, valid_from, max(int(hysteresis), 1), E,
-        int(tie == "last"), int(emit_unclosed), o["valid"].data_ptr(), o["closed"].data_ptr(),
-        o["start"].data_ptr(), o["close"].data_ptr(), o["pidx"].data_ptr(), o["pval"].data_ptr(),
-        o["count"].data_ptr(), o["overflow"].data_ptr(),
-        *ex, len(extras), _ptr(o.get("cap")), base, Lg, _ptr(ginit), _ptr(o.get("gate_out")),
-        o["scratch"], span_cap, _stream(track))
-    build.check(err, "gate_events")
-    _count(gate_events, *(("primed",) if carried else ()))
-    table = GateEvents(
-        valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
-        peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
-    return table, o.get("cap"), o.get("gate_out")
+    with span(_B_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_B_SPANS.prep) if above.is_cuda else NO_SPAN:
+            if tie not in ("first", "last"):
+                raise ValueError("tie must be 'first' or 'last'")
+            if not 1 <= max_events <= MAX_EVENTS:
+                raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
+            if above.shape != track.shape or above.dim() != 2:
+                raise ValueError("above and track must both be (batch, L)")
+            if any(e.shape != track.shape for e in extras):
+                raise ValueError("every captured channel must be (batch, L) like track")
+            batch, L = above.shape
+            if gate_init is not None and tuple(gate_init.shape) != (batch, 2):
+                raise ValueError(f"gate_init must be ({batch}, 2), got {tuple(gate_init.shape)}")
+            base = host_index(base_index)
+            Lg = base + L if stream_len_global is None else int(stream_len_global)
+            kw = dict(hysteresis=hysteresis, max_events=max_events, valid_from=valid_from,
+                      tie=tie, emit_unclosed=emit_unclosed)
+            carried = (gate_init is not None or base != 0 or stream_len_global is not None
+                       or emit_state)
+            tensors = (above, track, *extras, *(() if gate_init is None else (gate_init,)))
+            if check_kernel_device(*tensors) == "cpu":
+                return extract_gate_events_carried(above, track, extras, base_index=base,
+                                                   stream_len_global=Lg, gate_init=gate_init,
+                                                   **kw)
+            if above.dtype != torch.bool or any(t.dtype != torch.float32
+                                                for t in (track, *extras)):
+                raise TypeError("kernel B takes bool above and float32 track and channels")
+            if not all(t.is_contiguous() for t in (above, track, *extras)):
+                raise ValueError("kernel B needs contiguous inputs")
+            check_index_range(base, L)
+            if not 0 <= Lg < 2**31:
+                raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
+            dev, E = track.device, max_events
+            if batch == 0:
+                return (empty_table((0,), max_events, track.dtype, dev),
+                        torch.empty((0, len(extras), E), device=dev) if extras else None,
+                        torch.empty((0, 2), dtype=torch.int32, device=dev) if emit_state
+                        else None)
+            ginit = gate_init
+            if ginit is not None and (ginit.dtype != torch.int32 or not ginit.is_contiguous()):
+                ginit = ginit.to(torch.int32).contiguous()
+            # one allocation: the table, the captured channels, gate_out, and the
+            # scratch of the span-parallel mode (span summaries, merged slots)
+            span_cap = max(1, -(-L // _B_TILE))
+            with span(_B_SPANS.alloc):
+                o = _carve(dev, [("start", torch.int32, (batch, E)),
+                                 ("close", torch.int32, (batch, E)),
+                                 ("pidx", torch.int32, (batch, E)),
+                                 ("pval", torch.float32, (batch, E)),
+                                 ("count", torch.int32, (batch,)),
+                                 ("valid", torch.bool, (batch, E)),
+                                 ("closed", torch.bool, (batch, E)),
+                                 ("overflow", torch.bool, (batch,)),
+                                 ("scratch", None, batch * (16 * span_cap + 16 * E + 4))]
+                           + [("cap", torch.float32, (batch, len(extras), E))] * bool(extras)
+                           + [("gate_out", torch.int32, (batch, 2))] * bool(emit_state))
+            ex = [e.data_ptr() for e in extras] + [None] * (3 - len(extras))
+        with span(_B_SPANS.launch):
+            err = build.library().gate_events_f32(
+                above.data_ptr(), track.data_ptr(), batch, L, valid_from,
+                max(int(hysteresis), 1), E, int(tie == "last"), int(emit_unclosed),
+                o["valid"].data_ptr(), o["closed"].data_ptr(), o["start"].data_ptr(),
+                o["close"].data_ptr(), o["pidx"].data_ptr(), o["pval"].data_ptr(),
+                o["count"].data_ptr(), o["overflow"].data_ptr(),
+                *ex, len(extras), _ptr(o.get("cap")), base, Lg, _ptr(ginit),
+                _ptr(o.get("gate_out")), o["scratch"], span_cap, _stream(track))
+            build.check(err, "gate_events")
+            _count(gate_events, *(("primed",) if carried else ()))
+        table = GateEvents(
+            valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
+            peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
+        return table, o.get("cap"), o.get("gate_out")
 
 
 def minn_rtl_detect_fused(
@@ -483,18 +516,19 @@ def minn_rtl_detect_fused(
     count, so a stream step passes 1 where a gate continues into the chunk
     and 0 elsewhere); with ``emit_state`` returns ``(table, (carry_out
     (batch,), gate_out (batch, 2) [last-above, cluster count]))``."""
-    _check_input(x)
-    hist, carry, ginit = (None, None, None) if shard_init is None else shard_init
-    base = 0 if base_index is None else host_index(base_index)
-    corr, above, *carry_out = minn_rtl_metric(
-        x, quarter_len=quarter_len, smooth_shift=smooth_shift,
-        threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
-        base_index=base, hist_init=hist, carry_init=carry, emit_state=emit_state)
-    out = gate_events(
-        above, corr, hysteresis=hysteresis, max_events=max_events,
-        valid_from=max(0, 3 * quarter_len - 1), tie=tie, emit_unclosed=emit_unclosed,
-        base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
-        emit_state=emit_state)
+    with span(_DETECT_SPAN):
+        _check_input(x)
+        hist, carry, ginit = (None, None, None) if shard_init is None else shard_init
+        base = 0 if base_index is None else host_index(base_index)
+        corr, above, *carry_out = minn_rtl_metric(
+            x, quarter_len=quarter_len, smooth_shift=smooth_shift,
+            threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+            base_index=base, hist_init=hist, carry_init=carry, emit_state=emit_state)
+        out = gate_events(
+            above, corr, hysteresis=hysteresis, max_events=max_events,
+            valid_from=max(0, 3 * quarter_len - 1), tie=tie, emit_unclosed=emit_unclosed,
+            base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
+            emit_state=emit_state)
     if emit_state:
         table, gate_out = out
         return table, (carry_out[0], gate_out)
@@ -579,65 +613,77 @@ def minn_rtl_step(chunk, hist, carry, gate, *, base_index, quarter_len: int, smo
     horizon.  Returns (table `GateEvents` (batch, max_events) with global
     indices, every gate that exists valid; carry_out (batch,); gate_out
     (batch, 2); the new history (C, batch, H) float32)."""
-    _check_input(chunk)
-    C, batch, L = chunk.shape
-    if tuple(hist.shape[:-1]) != (C, batch) or hist.dim() != 3:
-        raise ValueError(f"hist must be ({C}, {batch}, H), got {tuple(hist.shape)}")
-    if tuple(carry.shape) != (batch,) or tuple(gate.shape) != (batch, 2):
-        raise ValueError(f"carry must be ({batch},) and gate ({batch}, 2), got "
-                         f"{tuple(carry.shape)} and {tuple(gate.shape)}")
-    if tie not in ("first", "last"):
-        raise ValueError("tie must be 'first' or 'last'")
-    if not 1 <= max_events <= MAX_EVENTS:
-        raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
-    kw = dict(base_index=base_index, quarter_len=quarter_len, smooth_shift=smooth_shift,
-              threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
-              hysteresis=hysteresis, max_events=max_events, tie=tie,
-              stream_len_global=stream_len_global)
-    if check_kernel_device(chunk, hist, carry, gate) == "cpu":
-        return minn_rtl_step_plain(chunk, hist, carry, gate, **kw)
-    if (hist.dtype, carry.dtype, gate.dtype) != (torch.float32, torch.float32, torch.int32):
-        raise TypeError("kernel F takes a float32 hist and carry and an int32 gate")
-    if not (hist.is_contiguous() and carry.is_contiguous() and gate.is_contiguous()):
-        raise ValueError("kernel F needs a contiguous hist, carry and gate")
-    if L > 1 and chunk.stride(-1) != 1:
-        raise ValueError(f"kernel F reads a chunk with unit stride along time, got strides "
-                         f"{chunk.stride()}")
-    if C > 8:
-        raise ValueError(f"kernel F takes at most 4 branches, got {C // 2}")
-    Q = quarter_len
-    ring = lambda n: -(-n // 4) * 4  # noqa: E731
-    smem = 4 * (C * (ring(Q) + _A_TILE) + 2 * (ring(3 * Q) + _A_TILE))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
-    base = host_index(base_index)
-    check_index_range(base, L)
-    Lg = int(stream_len_global)
-    if not 0 <= Lg < 2**31:
-        raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
-    H, E, dev = hist.shape[-1], max_events, chunk.device
-    o = _carve(dev, [("start", torch.int32, (batch, E)), ("close", torch.int32, (batch, E)),
-                     ("pidx", torch.int32, (batch, E)), ("pval", torch.float32, (batch, E)),
-                     ("count", torch.int32, (batch,)), ("valid", torch.bool, (batch, E)),
-                     ("closed", torch.bool, (batch, E)), ("overflow", torch.bool, (batch,)),
-                     ("carry_out", torch.float32, (batch,)), ("gate_out", torch.int32, (batch, 2)),
-                     ("hist", torch.float32, (C, batch, H))])
-    if batch:
-        alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
-        err = build.library().minn_rtl_step(
-            int(chunk.dtype == torch.int16), chunk.data_ptr(), chunk.stride(0), chunk.stride(1),
-            hist.data_ptr(), H, carry.data_ptr(), gate.data_ptr(), C, batch, L, Q, base, alpha,
-            max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
-            max(int(hysteresis), 1), E, int(tie == "last"), Lg,
-            *(o[f].data_ptr() for f in ("valid", "closed", "start", "close", "pidx", "pval",
-                                        "count", "overflow", "carry_out", "gate_out", "hist")),
-            _stream(chunk))
-        build.check(err, "minn_rtl_step")
-        _count(minn_rtl_step, *(("int16",) if chunk.dtype == torch.int16 else ()))
-    table = GateEvents(
-        valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
-        peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
-    return table, o["carry_out"], o["gate_out"], o["hist"]
+    with span(_F_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_F_SPANS.prep) if chunk.is_cuda else NO_SPAN:
+            _check_input(chunk)
+            C, batch, L = chunk.shape
+            if tuple(hist.shape[:-1]) != (C, batch) or hist.dim() != 3:
+                raise ValueError(f"hist must be ({C}, {batch}, H), got {tuple(hist.shape)}")
+            if tuple(carry.shape) != (batch,) or tuple(gate.shape) != (batch, 2):
+                raise ValueError(f"carry must be ({batch},) and gate ({batch}, 2), got "
+                                 f"{tuple(carry.shape)} and {tuple(gate.shape)}")
+            if tie not in ("first", "last"):
+                raise ValueError("tie must be 'first' or 'last'")
+            if not 1 <= max_events <= MAX_EVENTS:
+                raise ValueError(f"max_events must be in [1, {MAX_EVENTS}]")
+            kw = dict(base_index=base_index, quarter_len=quarter_len,
+                      smooth_shift=smooth_shift, threshold_value=threshold_value,
+                      threshold_frac_bits=threshold_frac_bits, hysteresis=hysteresis,
+                      max_events=max_events, tie=tie, stream_len_global=stream_len_global)
+            if check_kernel_device(chunk, hist, carry, gate) == "cpu":
+                return minn_rtl_step_plain(chunk, hist, carry, gate, **kw)
+            if (hist.dtype, carry.dtype, gate.dtype) != (torch.float32, torch.float32,
+                                                         torch.int32):
+                raise TypeError("kernel F takes a float32 hist and carry and an int32 gate")
+            if not (hist.is_contiguous() and carry.is_contiguous() and gate.is_contiguous()):
+                raise ValueError("kernel F needs a contiguous hist, carry and gate")
+            if L > 1 and chunk.stride(-1) != 1:
+                raise ValueError(f"kernel F reads a chunk with unit stride along time, got "
+                                 f"strides {chunk.stride()}")
+            if C > 8:
+                raise ValueError(f"kernel F takes at most 4 branches, got {C // 2}")
+            Q = quarter_len
+            ring = lambda n: -(-n // 4) * 4  # noqa: E731
+            smem = 4 * (C * (ring(Q) + _A_TILE) + 2 * (ring(3 * Q) + _A_TILE))
+            if smem > _SMEM_LIMIT:
+                raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+            base = host_index(base_index)
+            check_index_range(base, L)
+            Lg = int(stream_len_global)
+            if not 0 <= Lg < 2**31:
+                raise ValueError(f"stream_len_global {Lg} leaves the int32 index range")
+            H, E, dev = hist.shape[-1], max_events, chunk.device
+            with span(_F_SPANS.alloc):
+                o = _carve(dev, [("start", torch.int32, (batch, E)),
+                                 ("close", torch.int32, (batch, E)),
+                                 ("pidx", torch.int32, (batch, E)),
+                                 ("pval", torch.float32, (batch, E)),
+                                 ("count", torch.int32, (batch,)),
+                                 ("valid", torch.bool, (batch, E)),
+                                 ("closed", torch.bool, (batch, E)),
+                                 ("overflow", torch.bool, (batch,)),
+                                 ("carry_out", torch.float32, (batch,)),
+                                 ("gate_out", torch.int32, (batch, 2)),
+                                 ("hist", torch.float32, (C, batch, H))])
+            alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+        with span(_F_SPANS.launch):
+            if batch:
+                err = build.library().minn_rtl_step(
+                    int(chunk.dtype == torch.int16), chunk.data_ptr(), chunk.stride(0),
+                    chunk.stride(1), hist.data_ptr(), H, carry.data_ptr(), gate.data_ptr(), C,
+                    batch, L, Q, base, alpha, max(0, 3 * Q - 1), float(1 << threshold_frac_bits),
+                    float(threshold_value), max(int(hysteresis), 1), E, int(tie == "last"), Lg,
+                    *(o[f].data_ptr() for f in ("valid", "closed", "start", "close", "pidx",
+                                                "pval", "count", "overflow", "carry_out",
+                                                "gate_out", "hist")),
+                    _stream(chunk))
+                build.check(err, "minn_rtl_step")
+                _count(minn_rtl_step, *(("int16",) if chunk.dtype == torch.int16 else ()))
+        table = GateEvents(
+            valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
+            peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
+        return table, o["carry_out"], o["gate_out"], o["hist"]
 
 
 minn_rtl_step.launches = 0

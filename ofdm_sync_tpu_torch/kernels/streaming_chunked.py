@@ -52,8 +52,11 @@ from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_cfar_detect
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
 from ofdm_sync_tpu_torch.ops.windows import linear_recurrence, running_sum_stream
+from ofdm_sync_tpu_torch.utils.profiling import SPAN_PREFIX, span
 
 _I32_MAX = 2**31 - 1
+#: the span of the Minn-RTL fused stream step (`utils.profiling.span`)
+_FUSED_STEP_SPAN = SPAN_PREFIX + "minn_rtl_fused_stream_step"
 _NEG_INF = float("-inf")
 
 #: Hard bound of one index epoch: global sample indices are int32 and the
@@ -329,11 +332,12 @@ def minn_rtl_fused_stream_step(state: MinnRTLFusedStreamState, chunk: torch.Tens
     every gate finalizes "closed", unclipped); the next chunk continues it
     through the gate carry, and `stitch_chunk_tables` joins the pieces and
     decides closed-ness against the stream end."""
-    base = int(state.base)
-    table, carry, gate, hist = minn_rtl_step(chunk, state.hist, state.carry, state.gate,
-                                             **minn_step_kwargs(params, base))
-    return MinnRTLFusedStreamState(hist=hist, carry=carry, gate=gate,
-                                   base=_base(base + chunk.shape[-1])), table
+    with span(_FUSED_STEP_SPAN):
+        base = int(state.base)
+        table, carry, gate, hist = minn_rtl_step(chunk, state.hist, state.carry, state.gate,
+                                                 **minn_step_kwargs(params, base))
+        return MinnRTLFusedStreamState(hist=hist, carry=carry, gate=gate,
+                                       base=_base(base + chunk.shape[-1])), table
 
 
 def minn_rtl_fused_stream_rebase(state: MinnRTLFusedStreamState, *,

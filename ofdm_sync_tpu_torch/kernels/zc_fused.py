@@ -62,9 +62,14 @@ from ofdm_sync_tpu_torch.kernels.streaming import (
     zc_iq_planar_primed,
 )
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
+from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, SPAN_PREFIX, span, wrapper_spans
 
 #: kernel D takes 1 to 4 branches
 _MAX_BRANCHES = 4
+#: the spans of kernel D's wrapper (`utils.profiling.span`) and of the
+#: detector from IQ
+_D_SPANS = wrapper_spans("zc_metric")
+_ZC_DETECT_SPAN = SPAN_PREFIX + "zc_iq_cfar_detect"
 
 
 class ZCMetricRows(NamedTuple):
@@ -129,79 +134,88 @@ def zc_metric(
     global index among the halo's last max(hysteresis, 1) samples whose CFAR
     decision is true (-1: none).  Returns (mag, above[, gate_init]), each
     (batch, L or Lc)."""
-    W = corr_window
-    if W < 1:
-        raise ValueError("corr_window must be positive")
-    T = default_threshold(W, threshold_frac_bits) if threshold_value is None else threshold_value
-    cfar = dict(corr_window=W, threshold_value=T, threshold_frac_bits=threshold_frac_bits,
-                min_corr_mag=min_corr_mag)
-    base = host_index(base_index)
-    hist = iq_hist = None
-    if iq is None:
-        if x.dim() != 2 or x.dtype != torch.float32:
-            raise ValueError(f"expected corr_mag float32 (batch, L), got {tuple(x.shape)} "
-                             f"{x.dtype}")
-        hist = _history(hist_init, tuple(x.shape[:1]), "hist_init")
-        tensors, branches = (x, *(() if hist is None else (hist,))), 0
-    else:
-        if ref_len is None or ref_norm is None or ref_len < 1:
-            raise ValueError("IQ mode needs ref_len >= 1 and ref_norm")
-        if x.dim() != 3 or x.shape[0] % 2 or x.dtype != torch.float32:
-            raise ValueError(f"expected mf float32 (2*branches, batch, Lc), got "
-                             f"{tuple(x.shape)} {x.dtype}")
-        if iq.dim() != 3 or iq.shape[:2] != x.shape[:2]:
-            raise ValueError(f"iq {tuple(iq.shape)} does not match mf {tuple(x.shape)}")
-        if iq.dtype not in (torch.float32, torch.int16):
-            raise TypeError(f"expected float32 or int16 IQ, got {iq.dtype}")
-        if hist_init is not None:
-            mf_halo, iq_halo = hist_init
-            hist = _history(mf_halo, tuple(x.shape[:2]), "mf_halo")
-            if iq_halo.shape != hist.shape:
-                raise ValueError(f"iq_halo {tuple(iq_halo.shape)} must match mf_halo "
-                                 f"{tuple(hist.shape)}")
-            iq_hist = iq_halo.to(iq.dtype).contiguous()
-        tensors, branches = (x, iq, *(() if hist is None else (hist, iq_hist))), x.shape[0] // 2
-    if check_kernel_device(*tensors) == "cpu":
-        if iq is None:
-            return ZCMetricRows(x, zc_cfar_planar(x, **cfar, base_index=base, hist=hist))
-        if hist is None:
-            return ZCMetricRows(*zc_iq_planar(x, iq, ref_len=ref_len, ref_norm=ref_norm, **cfar,
-                                              base_index=base))
-        return ZCMetricRows(*zc_iq_planar_primed(x, iq, hist, iq_hist, ref_len=ref_len,
-                                                 ref_norm=ref_norm, base_index=base,
-                                                 hysteresis=hysteresis, **cfar))
+    with span(_D_SPANS.call):
+        # prep on the card path only (a CPU tensor runs the plain version)
+        with span(_D_SPANS.prep) if x.is_cuda else NO_SPAN:
+            W = corr_window
+            if W < 1:
+                raise ValueError("corr_window must be positive")
+            T = (default_threshold(W, threshold_frac_bits) if threshold_value is None
+                 else threshold_value)
+            cfar = dict(corr_window=W, threshold_value=T, threshold_frac_bits=threshold_frac_bits,
+                        min_corr_mag=min_corr_mag)
+            base = host_index(base_index)
+            hist = iq_hist = None
+            if iq is None:
+                if x.dim() != 2 or x.dtype != torch.float32:
+                    raise ValueError(f"expected corr_mag float32 (batch, L), got "
+                                     f"{tuple(x.shape)} {x.dtype}")
+                hist = _history(hist_init, tuple(x.shape[:1]), "hist_init")
+                tensors, branches = (x, *(() if hist is None else (hist,))), 0
+            else:
+                if ref_len is None or ref_norm is None or ref_len < 1:
+                    raise ValueError("IQ mode needs ref_len >= 1 and ref_norm")
+                if x.dim() != 3 or x.shape[0] % 2 or x.dtype != torch.float32:
+                    raise ValueError(f"expected mf float32 (2*branches, batch, Lc), got "
+                                     f"{tuple(x.shape)} {x.dtype}")
+                if iq.dim() != 3 or iq.shape[:2] != x.shape[:2]:
+                    raise ValueError(f"iq {tuple(iq.shape)} does not match mf {tuple(x.shape)}")
+                if iq.dtype not in (torch.float32, torch.int16):
+                    raise TypeError(f"expected float32 or int16 IQ, got {iq.dtype}")
+                if hist_init is not None:
+                    mf_halo, iq_halo = hist_init
+                    hist = _history(mf_halo, tuple(x.shape[:2]), "mf_halo")
+                    if iq_halo.shape != hist.shape:
+                        raise ValueError(f"iq_halo {tuple(iq_halo.shape)} must match mf_halo "
+                                         f"{tuple(hist.shape)}")
+                    iq_hist = iq_halo.to(iq.dtype).contiguous()
+                tensors = (x, iq, *(() if hist is None else (hist, iq_hist)))
+                branches = x.shape[0] // 2
+            if check_kernel_device(*tensors) == "cpu":
+                if iq is None:
+                    return ZCMetricRows(x, zc_cfar_planar(x, **cfar, base_index=base, hist=hist))
+                if hist is None:
+                    return ZCMetricRows(*zc_iq_planar(x, iq, ref_len=ref_len, ref_norm=ref_norm,
+                                                      **cfar, base_index=base))
+                return ZCMetricRows(*zc_iq_planar_primed(x, iq, hist, iq_hist, ref_len=ref_len,
+                                                         ref_norm=ref_norm, base_index=base,
+                                                         hysteresis=hysteresis, **cfar))
 
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("kernel D needs contiguous inputs")
-    if branches > _MAX_BRANCHES:
-        raise ValueError(f"kernel D takes at most {_MAX_BRANCHES} branches")
-    smem = smem_bytes(W, ref_len or 0, branches)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"corr_window {W} / ref_len {ref_len} need {smem} B of shared memory, "
-                         f"more than the {_SMEM_LIMIT} B a Hopper CTA has")
-    batch, L = x.shape[-2:]
-    check_index_range(base, L)
-    above = torch.empty((batch, L), dtype=torch.uint8, device=x.device)
-    mag = x if iq is None else torch.empty((batch, L), dtype=torch.float32, device=x.device)
-    primed_iq = iq is not None and hist is not None
-    gate = torch.empty((batch, 2), dtype=torch.int32, device=x.device) if primed_iq else None
-    hist_len = 0 if hist is None else hist.shape[-1]
-    thr = (float(1 << threshold_frac_bits), float(T), float(min_corr_mag))
-    if batch and (L or primed_iq):
-        lib = build.library()
-        if iq is None:
-            err = lib.zc_cfar_mag_f32(x.data_ptr(), _ptr(hist), batch, L, W, hist_len, base, *thr,
-                                      above.data_ptr(), _stream(x))
-        else:
-            err = lib.zc_cfar_iq(int(iq.dtype == torch.int16), x.data_ptr(), iq.data_ptr(),
-                                 _ptr(hist), _ptr(iq_hist), x.shape[0], batch, L, iq.shape[-1],
-                                 ref_len, W, hist_len, base, max(int(hysteresis), 1),
-                                 float(ref_norm), *thr, mag.data_ptr(), above.data_ptr(),
-                                 _ptr(gate), _stream(x))
-        build.check(err, "zc_metric")
-        primed = hist is not None or base != 0
-        _count(zc_metric, *(("primed_iq" if iq is not None else "primed",) if primed else ()))
-    return ZCMetricRows(mag, above.view(torch.bool), gate)
+            if not all(t.is_contiguous() for t in tensors):
+                raise ValueError("kernel D needs contiguous inputs")
+            if branches > _MAX_BRANCHES:
+                raise ValueError(f"kernel D takes at most {_MAX_BRANCHES} branches")
+            smem = smem_bytes(W, ref_len or 0, branches)
+            if smem > _SMEM_LIMIT:
+                raise ValueError(f"corr_window {W} / ref_len {ref_len} need {smem} B of shared "
+                                 f"memory, more than the {_SMEM_LIMIT} B a Hopper CTA has")
+            batch, L = x.shape[-2:]
+            check_index_range(base, L)
+            primed_iq = iq is not None and hist is not None
+            dev = x.device
+            with span(_D_SPANS.alloc):
+                above = torch.empty((batch, L), dtype=torch.uint8, device=dev)
+                mag = x if iq is None else torch.empty((batch, L), dtype=torch.float32, device=dev)
+                gate = torch.empty((batch, 2), dtype=torch.int32, device=dev) if primed_iq else None
+            hist_len = 0 if hist is None else hist.shape[-1]
+            thr = (float(1 << threshold_frac_bits), float(T), float(min_corr_mag))
+        with span(_D_SPANS.launch):
+            if batch and (L or primed_iq):
+                lib = build.library()
+                if iq is None:
+                    err = lib.zc_cfar_mag_f32(x.data_ptr(), _ptr(hist), batch, L, W, hist_len,
+                                              base, *thr, above.data_ptr(), _stream(x))
+                else:
+                    err = lib.zc_cfar_iq(int(iq.dtype == torch.int16), x.data_ptr(),
+                                         iq.data_ptr(), _ptr(hist), _ptr(iq_hist), x.shape[0],
+                                         batch, L, iq.shape[-1], ref_len, W, hist_len, base,
+                                         max(int(hysteresis), 1), float(ref_norm), *thr,
+                                         mag.data_ptr(), above.data_ptr(), _ptr(gate), _stream(x))
+                build.check(err, "zc_metric")
+                primed = hist is not None or base != 0
+                _count(zc_metric, *(("primed_iq" if iq is not None else "primed",)
+                                    if primed else ()))
+        return ZCMetricRows(mag, above.view(torch.bool), gate)
 
 
 zc_metric.launches = 0
@@ -284,12 +298,13 @@ def zc_iq_cfar_detect(
     ref_len, corr_window, hysteresis)`.  Kernel D pushes the halo through
     its own datapath and primes kernel B's gate from it; indices are then
     global."""
-    base = 0 if base_index is None else host_index(base_index)
-    o = zc_metric(mf, iq, ref_len=ref_len, ref_norm=ref_norm, corr_window=corr_window,
-                  threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
-                  min_corr_mag=min_corr_mag, base_index=base, hist_init=shard_init,
-                  hysteresis=hysteresis)
-    return gate_events(o.above, o.mag, hysteresis=hysteresis, max_events=max_events,
-                       valid_from=corr_window, tie=tie, emit_unclosed=emit_unclosed,
-                       base_index=base, stream_len_global=stream_len_global,
-                       gate_init=o.gate_init)
+    with span(_ZC_DETECT_SPAN):
+        base = 0 if base_index is None else host_index(base_index)
+        o = zc_metric(mf, iq, ref_len=ref_len, ref_norm=ref_norm, corr_window=corr_window,
+                      threshold_value=threshold_value, threshold_frac_bits=threshold_frac_bits,
+                      min_corr_mag=min_corr_mag, base_index=base, hist_init=shard_init,
+                      hysteresis=hysteresis)
+        return gate_events(o.above, o.mag, hysteresis=hysteresis, max_events=max_events,
+                           valid_from=corr_window, tie=tie, emit_unclosed=emit_unclosed,
+                           base_index=base, stream_len_global=stream_len_global,
+                           gate_init=o.gate_init)

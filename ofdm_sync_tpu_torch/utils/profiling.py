@@ -4,6 +4,10 @@
   activity, plus CUDA where a card is present) that exports a Chrome trace
   of everything run inside it (`trace.json`, which Perfetto and
   chrome://tracing read);
+* `span`, `wrapper_spans`: the port's own spans, named ``ofdm_sync.*``
+  (`SPAN_PREFIX`), at its entry points and kernel wrappers; recorded as
+  user annotations whenever a torch.profiler session records, and one
+  check otherwise;
 * `Throughput`: a steady-state samples/s meter (host enqueue time per call,
   and the wall time of ``iters`` calls ended by a synchronize of the
   output's device);
@@ -17,7 +21,7 @@
   by kernel name and the device's idle share;
 * `marginal_us`: the per-step cost of a streaming step from the difference
   of two run lengths.
-All but `trace`, `Throughput` and `kernel_stats` need a card.
+All but `trace`, `span`, `Throughput` and `kernel_stats` need a card.
 """
 
 from __future__ import annotations
@@ -26,9 +30,60 @@ import contextlib
 import os
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
+
+#: the first part of every span name of the port: a trace's reader tells
+#: the port's spans by it, and drops their device-side echoes (left by the
+#: `record_function` fallback), which are no device work
+SPAN_PREFIX = "ofdm_sync."
+#: what `span` returns while no profiler session records
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``name`` (which starts with `SPAN_PREFIX`): a
+    torch.profiler user annotation while a profiler session records (the
+    benchmark's traced runs, `trace`, the device windows below), on
+    kineto's clock like the device's events; otherwise the shared no-op
+    `NO_SPAN`, at the cost of one check.  ``with span(name):`` closes it on
+    an exception too."""
+    if not _profiler_enabled():
+        return NO_SPAN
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return fast(name) if fast is not None else torch.profiler.record_function(name)
+
+
+class WrapperSpans(NamedTuple):
+    """The span names of one kernel wrapper, by role.  ``call``: the whole
+    wrapper.  On the card path, ``prep``: everything before the call that
+    enqueues device work (the checks, the outputs, the arguments), holding
+    ``alloc``: the outputs' allocation and views; then ``launch``: the
+    library call through its error check and launch count (after a CUDA
+    graph, its replay)."""
+
+    call: str
+    prep: str
+    alloc: str
+    launch: str
+
+
+def wrapper_spans(wrapper: str) -> WrapperSpans:
+    """The spans of the kernel wrapper named ``wrapper`` (its name in
+    `kernels.launches`, so a span, a launch count and a kernel line up)."""
+    call = SPAN_PREFIX + wrapper
+    return WrapperSpans(call, call + ".prep", call + ".alloc", call + ".launch")
+
+
+def _device_events(events) -> list:
+    """The device's work among torch.profiler's events: CUDA-side events
+    other than the port's span echoes (a user annotation also appears on
+    the device, spanning the kernels launched inside it)."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(SPAN_PREFIX)]
 
 
 @contextlib.contextmanager
@@ -145,16 +200,16 @@ def kernel_ms(fn, reps: int = 5) -> float | None:
     """Device time of the work one fn() puts on the card: torch.profiler's
     device events summed, mean over `reps` calls after one warm-up.  Unlike
     cuda_ms and device_ms it leaves out the host's share (a wrapper whose
-    host work outlasts its kernels shows that work in device_ms).  None
-    where the profiler records no device activity."""
+    host work outlasts its kernels shows that work in device_ms; the
+    device-side echoes of the port's spans are no work).  None where the
+    profiler records no device activity."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    us = sum(e.time_range.elapsed_us() for e in _device_events(prof.events()))
     return us / reps / 1e3 if us else None
 
 
@@ -192,9 +247,10 @@ def device_window(fn, n: int, launches_per_call: int) -> dict:
     before the window opens, so that the tracer runs when it does), ended by a
     synchronize: the window's wall time, the device time of each kernel by
     name with its count (the device events that start and end inside the
-    window), the share of the window in which no device work ran, the
-    host's kernel-launch calls inside the window (``host_launches``) and
-    the host wall of the same ``n`` calls without the profiler (its cost).
+    window, less the echoes of the port's spans), the share of the window
+    in which no device work ran, the host's kernel-launch calls inside the
+    window (``host_launches``) and the host wall of the same ``n`` calls
+    without the profiler (its cost).
     Where the profiler records fewer kernel events than ``n *
     launches_per_call``, the device fields read "not measured" with the
     reason instead of a number."""
@@ -220,8 +276,8 @@ def device_window(fn, n: int, launches_per_call: int) -> dict:
     lo, hi = win[0].time_range.start, win[0].time_range.end
     inside = [e for e in events if lo <= e.time_range.start and e.time_range.end <= hi]
     spans, by_kernel = [], {}
-    for e in inside:  # the device's work, not the window's own annotation
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.name == "device_window":
+    for e in _device_events(inside):  # not the window's own annotation either
+        if e.name == "device_window":
             continue
         spans.append((e.time_range.start, e.time_range.end))
         k = by_kernel.setdefault(e.name, {"ms": 0.0, "count": 0})
