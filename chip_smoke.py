@@ -399,6 +399,16 @@ def phase_headline(dev, card: str) -> dict:
         if int(fused.count[quiet].sum()) != 0:
             raise AssertionError(f"headline {name}: events in noise-only streams")
         del st, ref
+        if name == "i16" and not TIMING:
+            # int16 codes without a history: kernel A's exact integer path,
+            # every tile of it on the integer route at these 12-bit codes
+            fails = torch.zeros(1, dtype=torch.int32, device=dev)
+            before = mode_launch_counts().get("minn_rtl_metric/exact_i16", 0)
+            F._minn_metric(x, "corr_above", quarter_len=Q, **KW, failed_tiles=fails)
+            exact = mode_launch_counts().get("minn_rtl_metric/exact_i16", 0) - before
+            if exact != 1 or int(fails) != 0:
+                raise AssertionError(f"headline i16: {exact} exact launches, {int(fails)} tiles "
+                                     "on the float route")
         corr, above = F.minn_rtl_metric(x, quarter_len=Q, **KW)
         gated = gated_samples(above, HYST)
         t_fused = cuda_ms(lambda: F.minn_rtl_detect_fused(x, **det))
@@ -3237,9 +3247,11 @@ def library_conv_ms(x, taps, y_kernel) -> tuple[float, float]:
 
 def sass_mix(lib, name: str) -> dict | None:
     """Instruction counts of one kernel's SASS, disassembled by the
-    toolkit's cuobjdump: in total, FP32 (FADD / FFMA / FMUL), shared and
-    global memory, shuffles, barriers and local (spill) memory.  None
-    where the toolkit has no cuobjdump or the library no such kernel."""
+    toolkit's cuobjdump: in total, FP32 (FADD / FFMA / FMUL), FP64, IMAD,
+    type conversions, shared and global memory, shuffles, barriers and
+    local (spill) memory.  Static counts: each instruction of the kernel's
+    code once, whichever branch runs.  None where the toolkit has no
+    cuobjdump or the library no such kernel."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     try:
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -3256,10 +3268,23 @@ def sass_mix(lib, name: str) -> dict | None:
             ops.append(m.group(1))
     if not ops:
         return None
-    groups = {"fp32": ("FADD", "FFMA", "FMUL"), "shared": ("LDS", "STS"),
-              "global": ("LDG", "STG"), "shfl": ("SHFL",), "bar": ("BAR",),
-              "local": ("LDL", "STL")}
+    groups = {"fp32": ("FADD", "FFMA", "FMUL"), "fp64": ("DADD", "DFMA", "DMUL"),
+              "imad": ("IMAD",), "cvt": ("I2F", "I2FP", "F2F", "F2FP", "F2I", "F2IP"),
+              "shared": ("LDS", "STS"), "global": ("LDG", "STG"), "shfl": ("SHFL",),
+              "bar": ("BAR",), "local": ("LDL", "STL")}
     return {"total": len(ops), **{k: sum(op in v for op in ops) for k, v in groups.items()}}
+
+
+#: kernel A's instantiations at up to two branches, by their mangled names:
+#: the exact int16 path, the float path on int16 (with a history) and on float32
+A_KERNELS = {"int16 exact": "minn_rtl_metric_kernelIsLi4ELb1E",
+             "int16 float path": "minn_rtl_metric_kernelIsLi4ELb0E",
+             "float32": "minn_rtl_metric_kernelIfLi4ELb0E"}
+
+
+def a_sass_mix(lib) -> dict:
+    """`sass_mix` of each of kernel A's instantiations in `A_KERNELS`."""
+    return {kind: sass_mix(lib, name) for kind, name in A_KERNELS.items()}
 
 
 def main() -> int:
@@ -3287,11 +3312,14 @@ def main() -> int:
         raise AssertionError(f"a kernel spills registers: {spills}")
     e_sass = sass_mix(info.path, "mf_ols_kernel")
     log(f"  kernel E's SASS instructions (a thread, a block): {e_sass}")
+    a_sass = a_sass_mix(info.path)
+    log(f"  kernel A's SASS instructions (static, a thread): {a_sass}")
     if any(launch_counts().values()):
         raise AssertionError(f"launch counters do not start at 0: {launch_counts()}")
     if TIMING:
         log(f"== timing the kernels of {TREE}")
-        out = {"tree": TREE, "e_sass": e_sass, "headline": phase_headline(dev, card),
+        out = {"tree": TREE, "e_sass": e_sass, "a_sass": a_sass,
+               "headline": phase_headline(dev, card),
                "long": phase_long(dev, card),
                "aa_headline": timing_aa(dev, card), "zc_headline": timing_zc(dev, card),
                "mf": timing_e(dev, card), "stream_kernels": phase_stream_kernels(dev, card)["res"],
@@ -3406,7 +3434,8 @@ def main() -> int:
                             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"e_sass": e_sass, "headline": head, "long": long, "aa_headline": aa_head,
+    print(json.dumps({"e_sass": e_sass, "a_sass": a_sass, "headline": head, "long": long,
+                      "aa_headline": aa_head,
                       "aa_chain_ms": aa_chain["chain_ms"],
                       "aa_grid": {k: v for k, v in aa_grid.items() if k != "counts"},
                       "zc_headline": zc_head,

@@ -4,8 +4,9 @@ Each kernel wrapper adds one to its ``.launches`` where it launches its
 kernel on a card, and nowhere else (a CPU tensor runs the plain version and
 counts nothing); at the same place it adds one to ``.modes[name]`` for each
 mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
-``corr_energy``, ``primed``, and ``strided`` for a view read in place;
-kernels B, C, D: ``primed``, the
+``corr_energy``, ``primed``, ``strided`` for a view read in place, and
+``exact_i16`` for int16 codes of up to two branches without a history,
+which take its exact integer path; kernels B, C, D: ``primed``, the
 carried-state mode, which for D is its magnitude mode; D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 ``int16`` for a chunk of int16 codes).  A run shows that it went through

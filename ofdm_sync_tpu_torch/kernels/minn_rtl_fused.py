@@ -15,10 +15,12 @@ Port of the TPU kernels `ofdm_sync_tpu/kernels/pallas_minn_tm.py:_tm_kernel`
   history.  Its output modes: corr_positive and above (#1, #2), the full
   metric with smooth and energy (#3, `minn_rtl_metric_planar_fused`),
   corr_positive and energy without the IIR (#4,
-  `minn_rtl_corr_energy_planar_fused`).  Primed, it starts from the IQ
-  history and smoothing register of the chunk before (``base_index``,
-  ``hist_init``, ``carry_init``) and can return the register at its last
-  sample (``emit_state``);
+  `minn_rtl_corr_energy_planar_fused`).  int16 codes of up to two branches
+  without a history take its exact integer path (window sums in integers,
+  corr and energy bit-identical to the float path's).  Primed, it starts
+  from the IQ history and smoothing register of the chunk before
+  (``base_index``, ``hist_init``, ``carry_init``) and can return the
+  register at its last sample (``emit_state``);
 * kernel B, `gate_events`: span-parallel.  Per span a summary (first and
   last above index, cluster starts), a scan of the summaries gives the gate
   state entering each span, and each span merges its clusters into the
@@ -78,6 +80,8 @@ MAX_EVENTS = 128
 _SMEM_LIMIT = 227 * 1024 - 1024
 #: samples per tile of kernel A (256 threads x 4) and of kernel B (256 x 16)
 _A_TILE, _B_TILE = 1024, 4096
+#: samples per tile of kernel A's exact int16 path (128 threads x 8)
+_A_EXACT_TILE = 1024
 #: the kernels index samples in int32 and walk up to one tile past the
 #: end: base + L stays below this
 _I32_LIMIT = 2**31 - 2 * _B_TILE
@@ -121,6 +125,16 @@ def metric_halo(quarter_len: int, smooth_shift: int) -> int:
         scan_mem += step
         step *= 2
     return 3 * quarter_len + scan_mem + 1
+
+
+def _exact_smem(C: int, Q: int, mode: str) -> int:
+    """Shared memory of kernel A's exact int16 path: the int16 delay line
+    and the int32 quarter-product and power rings, 3Q + 1024 entries each
+    (rounded up to 8), and a staging buffer for its stores where the mode
+    writes more than one float output."""
+    ring = -(-(3 * Q + _A_EXACT_TILE) // 8) * 8
+    floats = sum(f != "above" for f in _A_MODES[mode])
+    return (2 * C + 8) * ring + (4 * _A_EXACT_TILE if floats > 1 else 0)
 
 
 def _planar_view(x: torch.Tensor) -> torch.Tensor:
@@ -209,8 +223,17 @@ def _minn_metric(
     hist_init: torch.Tensor | None = None,
     carry_init: torch.Tensor | None = None,
     emit_state: bool = False,
+    failed_tiles: torch.Tensor | None = None,
 ) -> MinnMetricRows:
-    """Kernel A in one of its output modes (`_A_MODES`), plain or primed."""
+    """Kernel A in one of its output modes (`_A_MODES`), plain or primed.
+
+    On the card, int16 codes of up to two branches without a history take
+    the kernel's exact integer path (mode ``exact_i16``) where its rings fit
+    in shared memory (at two branches Q up to 4,480; 4,394 where the mode
+    writes more than one float output).  ``failed_tiles``, a one-element int32
+    tensor on x's device, gains the tiles that path walked on its float
+    route (a code out of its exact range within a tile's reach); the plain
+    version leaves it as it is."""
     with span(_A_SPANS.call):
         # prep on the card path only (a CPU tensor runs the plain version)
         with span(_A_SPANS.prep) if x.is_cuda else NO_SPAN:
@@ -253,6 +276,10 @@ def _minn_metric(
             if smem > _SMEM_LIMIT:
                 raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
             check_index_range(base, L)
+            if failed_tiles is not None and (failed_tiles.dtype != torch.int32
+                                             or failed_tiles.device != x.device
+                                             or not failed_tiles.is_contiguous()):
+                raise ValueError("failed_tiles must be a contiguous int32 tensor on x's device")
             dev = x.device
             with span(_A_SPANS.alloc):
                 out = {name: torch.empty((batch, L), dtype=torch.bool if name == "above"
@@ -262,6 +289,8 @@ def _minn_metric(
                                                 else None)
             carry = None if carry_init is None else carry_init.to(torch.float32).contiguous()
             alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
+            exact = (x.dtype == torch.int16 and hist is None and C <= 4
+                     and _exact_smem(C, Q, mode) <= _SMEM_LIMIT)
         with span(_A_SPANS.launch):
             if emit_state and not L:  # no sample: the register passes through
                 if carry is None:
@@ -270,17 +299,18 @@ def _minn_metric(
                     carry_out.copy_(carry)
             if batch and L:
                 err = build.library().minn_rtl_metric(
-                    int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), _ptr(carry), C, batch,
-                    L, x.stride(0), x.stride(1), Q, metric_halo(Q, smooth_shift),
+                    int(x.dtype == torch.int16), int(exact), x.data_ptr(), _ptr(hist), _ptr(carry),
+                    C, batch, L, x.stride(0), x.stride(1), Q, metric_halo(Q, smooth_shift),
                     0 if hist is None else hist.shape[-1], int(scan), base, alpha,
                     max(0, 3 * Q - 1), float(1 << threshold_frac_bits), float(threshold_value),
                     *(_ptr(out.get(f)) for f in ("corr", "smooth", "energy", "above",
                                                  "carry_out")),
-                    _stream(x))
+                    _ptr(failed_tiles), _stream(x))
                 build.check(err, "minn_rtl_metric")
                 primed = hist is not None or carry is not None or base != 0 or emit_state
                 _count(minn_rtl_metric, mode, *(("primed",) if primed else ()),
-                       *(("strided",) if not x.is_contiguous() else ()))
+                       *(("strided",) if not x.is_contiguous() else ()),
+                       *(("exact_i16",) if exact else ()))
         return MinnMetricRows(out["corr"], out.get("smooth"), out.get("energy"),
                               out.get("above"), carry_out)
 

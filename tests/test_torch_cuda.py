@@ -521,6 +521,61 @@ def test_cuda_metric_odd_quarter_matches_plain(cuda, q, dtype):
     assert _rel(corr, st.corr_positive) <= 2e-5 and torch.equal(energy, st.energy_total)
 
 
+def _codes(batch, L, q, events, seed, planted):
+    """12-bit ADC codes (int16, clipped to +-2047) with preambles at the
+    events; ``planted``: codes of +-32767 (and one -32768) in a few tiles."""
+    x = np.clip(np.round(9.0 * _stimulus(batch, L, q, events, seed=seed)), -2047, 2047)
+    if planted:
+        x[:, 0, 5000:5100] = 32767
+        x[1, batch - 1, L // 2] = -32768
+        x[:, batch - 1, L - 4000: L - 3990] = -32767
+    return torch.from_numpy(x.astype(np.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["corr_above", "full", "corr_energy"])
+@pytest.mark.parametrize("q,batch,L,view,planted", [
+    (512, 1, 3 * 2**16 + 37, False, False),
+    (101, 5, 70_001, False, False),
+    (37, 5, 40_003, False, False),
+    (512, 2, 50_000, True, False),
+    (512, 3, 100_003, False, True),
+])
+def test_cuda_metric_exact_i16_matches_float_path(cuda, mode, q, batch, L, view, planted):
+    """Kernel A on int16 codes without a history (its exact integer path):
+    corr and energy bit-identical to the float path on the same codes as
+    float32, smooth and above by the plain version's rules, across span
+    seams and on a strided view.  In-range codes: no tile leaves the exact
+    route and the launch counts as exact_i16; planted out-of-range codes:
+    their tiles take the float route (counted) and the outputs stay equal."""
+    events = [(b, p) for b in range(batch) for p in range(2000 + 900 * b, L - 6 * q, 20_000)]
+    buf = _codes(batch, L + 24, q, events, seed=q + batch, planted=planted).to(cuda)
+    x = buf[..., 11: 11 + L] if view else buf[..., :L].contiguous()
+    assert x.is_contiguous() != view
+    fails = torch.zeros(1, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    o = F._minn_metric(x, mode, quarter_len=q, **KW, failed_tiles=fails)
+    torch.cuda.synchronize()
+    modes = mode_launch_counts()
+    assert modes.get("minn_rtl_metric/exact_i16") == launch_counts()["minn_rtl_metric"] == 1
+    assert (int(fails) > 0) == planted
+    f = F._minn_metric(x.float(), mode, quarter_len=q, **KW)
+    assert mode_launch_counts().get("minn_rtl_metric/exact_i16") == 1
+    assert torch.equal(o.corr, f.corr)
+    if mode != "corr_above":
+        assert torch.equal(o.energy, f.energy)
+    if mode == "corr_energy":
+        return
+    st = minn_rtl_metric_planar(F._planar_view(x.float().cpu()), quarter_len=q, **KW)
+    e_s = st.energy_total * float(KW["threshold_value"])
+    margin = (st.smooth_metric * float(1 << KW["threshold_frac_bits"]) - e_s).abs()
+    for above in (o.above, f.above):
+        assert not ((above.cpu() != st.above_threshold) & (margin > 1e-5 * e_s.abs())).any()
+    if mode == "full":
+        assert _rel(o.smooth.cpu(), st.smooth_metric) <= 1e-5
+    assert int(o.above.sum()) > 0
+
+
 def _seam_gates(batch, n, seed):
     """Above runs on and around every 4096-sample tile seam, sparse above
     samples elsewhere, a quantized track full of ties with -0.0 among its

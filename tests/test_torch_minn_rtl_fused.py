@@ -24,7 +24,11 @@ from ofdm_sync_tpu.kernels.pallas_minn_tm import (  # noqa: E402
 )
 from ofdm_sync_tpu.parallel.shard import _minn_halo_width  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
-from ofdm_sync_tpu_torch.kernels.launches import launch_counts, reset_launch_counts  # noqa: E402
+from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
+    launch_counts,
+    mode_launch_counts,
+    reset_launch_counts,
+)
 from ofdm_sync_tpu_torch.testing import assert_tables_equal  # noqa: E402
 
 Q = 64
@@ -127,3 +131,36 @@ def test_cpu_path_counts_no_launch(rng):
     assert launch_counts() == dict.fromkeys(
         ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols",
          "minn_rtl_step"), 0)
+
+
+@pytest.mark.parametrize("dtype,C,q,hist,exact", [
+    (torch.int16, 4, 512, False, True),     # the sweep cell's codes
+    (torch.int16, 2, 37, False, True),
+    (torch.float32, 4, 512, False, False),  # float32 input
+    (torch.int16, 4, 512, True, False),     # a float history
+    (torch.int16, 8, 512, False, False),    # more than two branches
+    (torch.int16, 4, 4481, False, False),   # its rings past the shared memory
+])
+def test_exact_path_follows_the_input(monkeypatch, dtype, C, q, hist, exact):
+    """Kernel A's wrapper picks the exact int16 path from what the input
+    shows (dtype, a history, the branches, its shared memory) and counts
+    the launch as exact_i16; a fake library stands in for the card."""
+    calls = []
+
+    class Library:
+        def minn_rtl_metric(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(F.build, "library", Library)
+    monkeypatch.setattr(F, "check_kernel_device", lambda *t: "cuda")
+    monkeypatch.setattr(F, "_stream", lambda x: 0)
+    reset_launch_counts()
+    try:
+        x = torch.zeros((C, 2, 4096), dtype=dtype)
+        h = torch.zeros((C, 2, 3 * q)) if hist else None
+        F.minn_rtl_metric(x, quarter_len=q, **KW, hist_init=h)
+        assert len(calls) == 1 and calls[0][:2] == (int(dtype == torch.int16), int(exact))
+        assert mode_launch_counts().get("minn_rtl_metric/exact_i16", 0) == int(exact)
+    finally:
+        reset_launch_counts()
