@@ -28,9 +28,9 @@ windows at other taps.
 
 Each wrapper takes the channel-leading layout (2*branches, batch, L), rows
 [b0_i, b0_q, b1_i, b1_q, ...].  On a CUDA tensor it launches its kernel
-(counting the launch in ``.launches``, see `kernels.launches`); on a CPU
-tensor it runs the plain PyTorch version (`kernels.streaming.
-aa_metric_planar` / `aa_detect_step`, `ops.detect.
+(counting the launch in ``.launches`` and its modes in ``.modes``, see
+`kernels.launches`); on a CPU tensor it runs the plain PyTorch version
+(`kernels.streaming.aa_metric_planar` / `aa_detect_step`, `ops.detect.
 extract_gate_events_capture`); any other device raises.
 """
 
@@ -56,10 +56,12 @@ from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
 )
 from ofdm_sync_tpu_torch.kernels.streaming import aa_detect_step, aa_metric_planar as _plain
 from ofdm_sync_tpu_torch.ops.detect import GateEvents
-from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, span, wrapper_spans
+from ofdm_sync_tpu_torch.utils.profiling import NO_SPAN, SPAN_PREFIX, span, wrapper_spans
 
-#: the spans of kernel C's wrapper (`utils.profiling.span`)
+#: the spans of kernel C's wrapper (`utils.profiling.span`) and of the
+#: batch detector
 _C_SPANS = wrapper_spans("aa_metric")
+_DETECT_SPAN = SPAN_PREFIX + "aa_detect_fused"
 
 
 class AAMetricRows(NamedTuple):
@@ -117,7 +119,8 @@ def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
                     threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r), _ptr(track),
                     _ptr(m), _ptr(above), _stream(x))
                 build.check(err, "aa_metric")
-                _count(aa_metric, *(("primed",) if hist is not None or base != 0 else ()))
+                _count(aa_metric, *(("detect",) if detect else ()),
+                       *(("primed",) if hist is not None or base != 0 else ()))
         return AAMetricRows(p_re, p_im, r, m, track,
                             None if above is None else above.view(torch.bool))
 
@@ -159,14 +162,16 @@ def aa_detect_fused(
     <=H) float32, gate_init (batch, 2) int32 [last-above, open-gate
     flag]); with ``emit_state`` a fourth value, gate_out (batch, 2)
     [last-above, cluster count]."""
-    hist, ginit = (None, None) if shard_init is None else shard_init
-    base = 0 if base_index is None else host_index(base_index)
-    o = aa_metric(x, half_len=half_len, threshold=threshold, base_index=base, hist_init=hist)
-    table, cap, *gate_out = gate_events_capture(
-        o.above, o.track, (o.P_re, o.P_im, o.M), hysteresis=hysteresis,
-        max_events=max_events, valid_from=0, tie=tie, emit_unclosed=emit_unclosed,
-        base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
-        emit_state=emit_state)
+    with span(_DETECT_SPAN):
+        hist, ginit = (None, None) if shard_init is None else shard_init
+        base = 0 if base_index is None else host_index(base_index)
+        o = aa_metric(x, half_len=half_len, threshold=threshold, base_index=base,
+                      hist_init=hist)
+        table, cap, *gate_out = gate_events_capture(
+            o.above, o.track, (o.P_re, o.P_im, o.M), hysteresis=hysteresis,
+            max_events=max_events, valid_from=0, tie=tie, emit_unclosed=emit_unclosed,
+            base_index=base, stream_len_global=stream_len_global, gate_init=ginit,
+            emit_state=emit_state)
     return (table, cap[:, :2], cap[:, 2], *gate_out)
 
 

@@ -7,7 +7,9 @@ mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
 ``corr_energy``, ``primed``, ``strided`` for a view read in place, and
 ``exact_i16`` for int16 codes of up to two branches without a history,
 which take its exact integer path; kernels B, C, D: ``primed``, the
-carried-state mode, which for D is its magnitude mode; D's IQ mode with a
+carried-state mode, which for D is its magnitude mode; B: ``capture`` for
+a launch that reads channels at each slot's peak; C: ``detect`` for its
+detect mode (M, the tracked |P|^2 and the gate input); D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 ``int16`` for a chunk of int16 codes).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.

@@ -506,7 +506,8 @@ def _gate_events(above, track, extras, *, hysteresis, max_events=8, valid_from=0
                 *ex, len(extras), _ptr(o.get("cap")), base, Lg, _ptr(ginit),
                 _ptr(o.get("gate_out")), o["scratch"], span_cap, _stream(track))
             build.check(err, "gate_events")
-            _count(gate_events, *(("primed",) if carried else ()))
+            _count(gate_events, *(("primed",) if carried else ()),
+                   *(("capture",) if extras else ()))
         table = GateEvents(
             valid=o["valid"], closed=o["closed"], gate_start=o["start"], gate_close=o["close"],
             peak_idx=o["pidx"], peak_value=o["pval"], count=o["count"], overflow=o["overflow"])
