@@ -17,7 +17,9 @@ checkout, then, for each ported path:
   against their plain versions, drives the [A][A] receive chain
   (`run_fused_rx`) and the fused grid sweep (`run_grid_test_fused`) on the
   card and on the CPU, and runs the fused detector at bench.py's secondary
-  size (512 x 262144 x 2 branches, L = 512, float32), timed against the
+  size (512 x 262144 x 2 branches, L = 512) on float32 and on int16 codes
+  (the route of kernel C on the gate input alone, B plain and the peak
+  capture, each checked against its plain version), timed against the
   plain version;
 * [A][A], phase 8b: the plain grid sweep (`run_grid_test_batched`) against
   the fused one on the card for AWGN, cir1 and cir2 (every config's
@@ -154,6 +156,7 @@ from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.streaming import (  # noqa: E402
     aa_detect_step,
     aa_metric_planar,
+    aa_peak_capture_plain,
     minn_rtl_corr_energy_planar,
     minn_rtl_metric_planar,
     zc_cfar_planar,
@@ -222,6 +225,7 @@ from ofdm_sync_tpu_torch.utils.roofline import (  # noqa: E402
     bound,
     bound_sum,
     c_work,
+    cap_work,
     d_iq_work,
     d_mag_work,
     e_work,
@@ -486,7 +490,7 @@ def phase_long(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# [A][A]: kernel C (both modes) and kernel B with peak capture
+# [A][A]: kernel C (both modes), kernel B with peak capture, the peak capture
 # ---------------------------------------------------------------------------
 
 def aa_plain(x, lag):
@@ -858,7 +862,7 @@ def phase_aa_grid(dev, card: str) -> dict:
 
 def phase_aa_headline(dev, card: str) -> dict:
     B, n, lag = AA_HEADLINE["batch"], AA_HEADLINE["n"], AA_HEADLINE["lag"]
-    log(f"== phase 9: [A][A] detector at {B} x {n} x 2 branches, L={lag}, f32")
+    log(f"== phase 9: [A][A] detector at {B} x {n} x 2 branches, L={lag}, f32 and int16")
     events = [(0, 3 * lag), (1, n // 3), (2, n // 2), (3, n - 2 * lag - 700)]
     x = aa_stimulus(B, n, lag, dev, events=events)
     table = check_aa_detect(x, lag, "aa headline")
@@ -889,6 +893,52 @@ def phase_aa_headline(dev, card: str) -> dict:
         f"{tc['c_ms']:.3f} ms, B with capture {t_b:.3f} ms); plain "
         f"{t_pc + t_pb:.3f} ms = {N / (t_pc + t_pb) * 1e3:.4g} samples/s (metric {t_pc:.3f}, "
         f"events {t_pb:.3f}); card {card}")
+    res["lean"] = aa_lean_headline(x, lag, events, card)
+    return res
+
+
+def aa_lean_headline(x, lag: int, events, card: str) -> dict:
+    """Phase 9 on int16 codes, the route `aa_detect_fused` takes for them:
+    the whole call (kernel C on the gate input alone, B plain, the peak
+    capture) against its plain version, C's track and above against the
+    plain metric's, and the peak capture alone against
+    `aa_peak_capture_plain` on the same codes and table; their times."""
+    x16 = x.to(torch.int16)
+    reset_launch_counts()
+    table = check_aa_detect(x16, lag, "aa headline int16")
+    counts, modes = launch_counts(), mode_launch_counts()
+    if (modes.get("aa_metric/gate_input") != 1 or counts["aa_peak_capture"] != 1
+            or "gate_events/capture" in modes):
+        raise AssertionError(f"aa headline int16: not the lean route: {counts} {modes}")
+    check_aa_found(table, events, lag, "aa headline int16")
+    gate_input = lambda: AF._aa_metric(x16, half_len=lag, threshold=AA_THR,  # noqa: E731
+                                       base_index=0, hist_init=None, gate_input=True)
+    o = gate_input()
+    st, track, M, above = aa_plain(x16, lag)
+    c_err = check_equal(o.track, track, "aa headline int16 C track")
+    check_equal(o.above, above, "aa headline int16 C above")
+    del o, st, track, M, above
+    torch.cuda.empty_cache()
+    pidx = table.peak_idx
+    capture = lambda: AF.aa_peak_capture(x16, pidx, half_len=lag)  # noqa: E731
+    plain_capture = lambda: aa_peak_capture_plain(F._planar_view(x16), pidx, lag)  # noqa: E731
+    cap_err = check_equal(capture(), plain_capture(), "aa headline peak capture")
+    res = dict(gate_input_launches=modes["aa_metric/gate_input"],
+               capture_launches=counts["aa_peak_capture"], c_err=c_err, cap_err=cap_err,
+               fused_ms=cuda_ms(lambda: AF.aa_detect_fused(x16, half_len=lag)),
+               c_ms=cuda_ms(gate_input), c_kernel_ms=kernel_ms(gate_input),
+               plain_c_ms=cuda_ms(lambda: aa_plain(x16, lag)),
+               cap_ms=cuda_ms(capture), cap_kernel_ms=kernel_ms(capture),
+               plain_cap_ms=cuda_ms(plain_capture), valid_slots=int(table.valid.sum()),
+               cap_work=cap_work(table.valid.numel(), int(table.valid.sum()), lag,
+                                 x16.shape[0]))
+    del x16
+    torch.cuda.empty_cache()
+    log(f"  int16 codes, the lean route: C+B+capture {res['fused_ms']:.3f} ms; C on the gate "
+        f"input {res['c_ms']:.3f} ms (profiler {res['c_kernel_ms']}), plain metric "
+        f"{res['plain_c_ms']:.3f}; the peak capture {res['cap_ms']:.4f} ms (profiler "
+        f"{res['cap_kernel_ms']}) over {res['valid_slots']} valid slots, plain "
+        f"{res['plain_cap_ms']:.3f}; equal to the plain versions; card {card}")
     return res
 
 
@@ -3395,6 +3445,14 @@ def main() -> int:
          "ofdm_sync_tpu/kernels/pallas_aa.py:71, ofdm_sync_tpu/kernels/pallas_aa.py:221",
          aa_launches["aa_metric"], aa_k["max_err"], aa_head["c_ms"], aa_head["plain_c_ms"],
          c_work(B, AA_HEADLINE["n"], 4, 4, 17), None),
+        ("aa_metric[gate_input]", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         aa_head["lean"]["gate_input_launches"], aa_head["lean"]["c_err"],
+         aa_head["lean"]["c_ms"], aa_head["lean"]["plain_c_ms"],
+         c_work(B, AA_HEADLINE["n"], 4, 2, 5), None),
+        ("aa_peak_capture", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         aa_launches["aa_peak_capture"] + aa_head["lean"]["capture_launches"],
+         aa_head["lean"]["cap_err"], aa_head["lean"]["cap_ms"], aa_head["lean"]["plain_cap_ms"],
+         aa_head["lean"]["cap_work"], None),
         ("aa_metric[primed]", "aa_metric.cu",
          "ofdm_sync_tpu/kernels/pallas_aa.py:221, ofdm_sync_tpu/kernels/pallas_aa.py:71",
          modes.get("aa_metric/primed", 0), sk["errs"]["primed_c"], lat["c_primed_ms"],
@@ -3422,6 +3480,7 @@ def main() -> int:
         "minn_rtl_metric[full] int16": bound(*a_work(B, L, 4, 2, 13)),
         "aa_metric metric mode": bound(*c_work(B, AA_HEADLINE["n"], 4, 4, 12)),
         "aa_metric int16": bound(*c_work(B, AA_HEADLINE["n"], 4, 2, 17)),
+        "aa_metric gate_input int16": bound(*c_work(B, AA_HEADLINE["n"], 4, 2, 5)),
         "zc_metric magnitude, CFAR cell": bound(*d_mag_work(ZC_HEADLINE["batch"], n)),
         "zc_metric IQ int16": bound(*d_iq_work(ZC_HEADLINE["batch"], n + 2047, n, 4, 2)),
     }

@@ -1,10 +1,12 @@
-// Kernel C of the fused [A][A] detector: the per-sample metric.
+// Kernel C of the fused [A][A] detector: the per-sample metric, and its
+// peak capture.
 //
 // Replaces (TPU): ofdm_sync_tpu/kernels/pallas_aa.py:_aa_metric_kernel
 // (metric mode, aa_metric_planar_pallas) and the metric half of
 // pallas_aa.py:_aa_kernel (detect mode, aa_detect_fused_pallas), both built
 // on pallas_aa.py:_aa_metric_rows.  The gate/event half of _aa_kernel is
-// kernel B (gate_events.cu) with peak capture.
+// kernel B (gate_events.cu), with peak capture or, on int16 codes without a
+// history, followed by this file's peak capture (below).
 //
 // Computes, for each stream b and sample n of the channel-leading input
 // x[c, b, n] (C = 2 * branches planar rows [b0_i, b0_q, b1_i, ...], float32
@@ -14,23 +16,38 @@
 //   pim[k] = sum_b q[k] i[k-L] - i[k] q[k-L]
 //   pw[k]  = sum_b i[k]^2 + q[k]^2
 //   P_re[n], P_im[n], R[n] = sums of pre, pim, pw over k in [n-L+1, n]
-// Metric mode writes (P_re, P_im, R).  Detect mode writes P_re, P_im and
+// Metric mode writes (P_re, P_im, R).  Detect mode forms
 //   track = P_re^2 + P_im^2
 //   M     = n >= L && R > 1e-6 L ? min(track / max(R, 1e-12)^2, 1) : 0
 //   above = n >= L && M >= threshold
-// (pallas_aa.py:302-313).  Any output pointer may be null: not written.
-// Primed mode (pallas_aa.py:_aa_kernel's base_index / shard_init): x[k] for
-// k < 0 reads the right-aligned history hist[c, b, Hh + k] (zero before it
-// or without one), and validity compares the global index: base + n >= L.
-// The metric has no IIR, so the history alone primes a chunk.
+// (pallas_aa.py:302-313) and writes track and above, and P_re, P_im and M
+// where their pointers are given (any output pointer may be null: not
+// written).  Primed mode (pallas_aa.py:_aa_kernel's base_index /
+// shard_init): x[k] for k < 0 reads the right-aligned history hist[c, b,
+// Hh + k] (zero before it or without one), and validity compares the
+// global index: base + n >= L.  The metric has no IIR, so the history alone
+// primes a chunk.
 //
-// What bounds it on the H100: HBM bytes.  It reads 16 B/sample (f32, two
-// branches) or 8 B/sample (int16) and writes 12 B/sample (metric) or 17
-// B/sample (detect).  Measured at 512 x 262,144 x 2, L = 512 (PERF.md):
-// every mode moves 2.35-2.47 TB/s (74% of 3.35), and int16 is faster than
-// f32 by about its bytes; per sample it also runs 12 float64 products,
-// their conversions and the float64 scan of three window increments, which
-// bounded the variants that held fewer CTAs per SM.
+// What bounds it on the H100: its instructions a sample, not HBM.  It reads
+// 16 B/sample (f32, two branches) or 8 B/sample (int16) and writes 12
+// B/sample (metric), 17 B/sample (detect with P and M) or 5 B/sample
+// (detect, the gate input alone: track and above).  Measured at 512 x
+// 262,144 x 2, L = 512 on int16 (PERF.md): 1.42-1.44 ms with P and M, 1.39-
+// 1.40 ms with the gate input alone, against 0.52 ms for its 13 B/sample;
+// per sample it runs 12 float64 products and their conversions (products in
+// float32 instead saved 11%), the float64 scan of three window increments
+// (dropping it saved 20%), the ring traffic and M's division.
+//
+// Peak capture (aa_peak_capture_kernel).  On int16 codes without a history
+// every product and window sum above is an exact integer (at most C/2 x 2 x
+// 32768^2 x L < 2^53, the wrapper checks the bound), which kernel C carries
+// exactly in float64 and rounds once to float32.  So the channels that the
+// detector returns at each event's peak, P_re, P_im and M, need not be
+// written for every sample: after kernel B has found the peaks from track
+// and above, one warp a table slot sums the 2L codes before its peak in
+// int64, rounds each sum to float32 through float64 as kernel C does, and
+// forms track and M with kernel C's own roundings and guards -- the same
+// bits as kernel C's outputs read at the peak.
 //
 // Design (the span walk of span_walk.cuh, as kernel A's).  The TPU kernel
 // walks time blocks in order with a 2L IQ history in VMEM.  Here each CTA
@@ -90,6 +107,19 @@ struct Args {
   uint8_t* above;
 };
 
+// the tracked |P|^2 (into tr) and M of detect mode at one sample, one IEEE
+// rounding per operation; kernel C and the peak capture both form them here,
+// so the capture gives kernel C's bits
+__device__ __forceinline__ float aa_track_m(float p_re, float p_im, float r, bool valid,
+                                            float noise_floor, float& tr) {
+  tr = __fadd_rn(__fmul_rn(p_re, p_re), __fmul_rn(p_im, p_im));
+  if (valid && r > noise_floor) {
+    const float rc = fmaxf(r, 1e-12f);
+    return fminf(__fdiv_rn(tr, __fmul_rn(rc, rc)), 1.0f);
+  }
+  return 0.0f;
+}
+
 // kC = 4 or 8: the planes live in shared rings; kC = 0: no ring, the
 // delayed samples come from global memory
 template <typename T, int kC>
@@ -113,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kC)) aa_metric_kernel(con
   const float* hs = a.hist ? a.hist + (size_t)b * (size_t)a.hist_len : nullptr;
   const size_t hplane = (size_t)a.batch * (size_t)a.hist_len;
   const bool a1 = (lag & 3) == 0, a2 = (lag & 1) == 0;  // ring reads at lag, 2 lag aligned
-  const bool detect = a.m != nullptr;
+  const bool detect = a.track != nullptr;
 
   // sample n of plane c: the stream, the history before it, zero elsewhere
   auto ld = [&](int c, int n) -> float {
@@ -251,17 +281,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kC)) aa_metric_kernel(con
         uint32_t ab = 0u;
 #pragma unroll
         for (int k = 0; k < kItems; ++k) {
-          tr[k] = __fadd_rn(__fmul_rn(w[0][k], w[0][k]), __fmul_rn(w[1][k], w[1][k]));
           const bool valid = a.base + n0 + k >= lag;
-          m[k] = 0.0f;
-          if (valid && w[2][k] > a.noise_floor) {
-            const float rc = fmaxf(w[2][k], 1e-12f);
-            m[k] = fminf(__fdiv_rn(tr[k], __fmul_rn(rc, rc)), 1.0f);
-          }
+          m[k] = aa_track_m(w[0][k], w[1][k], w[2][k], valid, a.noise_floor, tr[k]);
           if (valid && m[k] >= a.thr) ab |= 1u << (8 * k);
         }
         store4(a.track + o, f4(tr), cnt);
-        store4(a.m + o, f4(m), cnt);
+        if (a.m) store4(a.m + o, f4(m), cnt);
         store4(a.above + o, ab, cnt);
       }
     }
@@ -304,18 +329,82 @@ int launch_planes(Args& a, void* stream) {
   return launch<T, 0>(a, stream);
 }
 
+// the 3 channels of slot (b, s) at its peak: P_re, P_im and M (kernel C's
+// detect mode at that sample, see the top of the file), zero where the
+// peak lies outside the call
+struct CapArgs {
+  const int16_t* x;  // (C, batch, L) int16 codes, no history
+  const int* pidx;   // (batch, E) global peak index of each slot (B's table)
+  float* cap;        // (batch, 3, E)
+  int C, batch, L, lag, E, base;
+  float noise_floor;
+};
+
+constexpr int kCapWarps = 8;  // slots a CTA, one warp each
+
+__global__ void __launch_bounds__(32 * kCapWarps) aa_peak_capture_kernel(const CapArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long slot = (long long)blockIdx.x * kCapWarps + (threadIdx.x >> 5);
+  if (slot >= (long long)a.batch * a.E) return;
+  const int b = (int)(slot / a.E), s = (int)(slot % a.E);
+  float* out = a.cap + (size_t)b * 3 * a.E + s;
+  // B writes peak index 0 to a slot without a gate and an index outside the
+  // call to one whose gate tracked no sample here; sample 0's window holds
+  // no lagged product (x[k] = 0 for k < 0) and M is 0 below L, so an empty
+  // slot reads 0 from either branch
+  const long long n = (long long)a.pidx[slot] - a.base;
+  if (n < 0 || n >= a.L) {
+    if (lane == 0) out[0] = out[a.E] = out[2 * a.E] = 0.0f;
+    return;
+  }
+  const size_t plane = (size_t)a.batch * (size_t)a.L;
+  const int16_t* xs = a.x + (size_t)b * (size_t)a.L;
+  long long pre = 0, pim = 0, pw = 0;
+  const int n0 = (int)n - a.lag + 1;
+  for (int k = max(n0, 0) + lane; k <= (int)n; k += 32) {
+    const int kd = k - a.lag;
+    for (int c = 0; c < a.C; c += 2) {
+      const int i = xs[(size_t)c * plane + k], q = xs[(size_t)(c + 1) * plane + k];
+      const int id = kd >= 0 ? xs[(size_t)c * plane + kd] : 0;
+      const int qd = kd >= 0 ? xs[(size_t)(c + 1) * plane + kd] : 0;
+      // each product fits int32 (|.| <= 2^30), their sums need int64
+      pre += (long long)(i * id) + (long long)(q * qd);
+      pim += (long long)(q * id) - (long long)(i * qd);
+      pw += (long long)(i * i) + (long long)(q * q);
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    pre += __shfl_xor_sync(0xffffffffu, pre, d);
+    pim += __shfl_xor_sync(0xffffffffu, pim, d);
+    pw += __shfl_xor_sync(0xffffffffu, pw, d);
+  }
+  if (lane != 0) return;
+  // kernel C's roundings: the exact sum through float64 to float32, then
+  // one IEEE rounding per operation
+  const float p_re = (float)(double)pre, p_im = (float)(double)pim, r = (float)(double)pw;
+  float tr;
+  const float m = aa_track_m(p_re, p_im, r, (long long)a.base + n >= a.lag, a.noise_floor, tr);
+  out[0] = p_re;
+  out[a.E] = p_im;
+  out[2 * a.E] = m;
+}
+
 }  // namespace
 
 // x (C, batch, L) float32 (is_i16 = 0) or int16; hist (C, batch, hist_len)
 // float32 or null, base the global index of sample 0 (primed mode); pre,
-// pim, r, track, m, above: (batch, L) outputs, null pointers are skipped
-// (metric mode: track = m = above = null; detect mode: r = null, track, m
-// and above all given).  The caller keeps base + L below 2^31 - 2^13.
+// pim, r, track, m, above: (batch, L) outputs, null pointers are skipped.
+// track given: detect mode, which needs above too (pre, pim and m each given
+// or null; all three null: the gate input alone, for aa_peak_capture);
+// track null: metric mode, m and above null too.  The caller keeps base + L
+// below 2^31 - 2^13.
 extern "C" int aa_metric(int is_i16, const void* x, const void* hist, int C, int batch,
                          long long L, int lag, int hist_len, long long base,
                          float noise_floor, float thr, void* pre, void* pim, void* r,
                          void* track, void* m, void* above, void* stream) {
-  if (C < 2 || C % 2 || lag < 1 || (m && !(track && above))) return (int)cudaErrorInvalidValue;
+  if (C < 2 || C % 2 || lag < 1) return (int)cudaErrorInvalidValue;
+  if (track ? !above : m || above) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || L <= 0) return (int)cudaSuccess;
   Args a{};
   a.x = x;
@@ -337,4 +426,32 @@ extern "C" int aa_metric(int is_i16, const void* x, const void* hist, int C, int
   a.m = (float*)m;
   a.above = (uint8_t*)above;
   return is_i16 ? launch_planes<int16_t>(a, stream) : launch_planes<float>(a, stream);
+}
+
+// The peak capture: x (C, batch, L) int16 codes without a history, pidx
+// (batch, E) int32 global peak indices (kernel B's table), base the global
+// index of sample 0, noise_floor and lag as given to aa_metric -> cap
+// (batch, 3, E) float32 [P_re, P_im, M] at each slot's peak, zero where the
+// peak lies outside [base, base + L).  The caller keeps C x lag x 2^31
+// below 2^52, so that every window sum is exact.
+extern "C" int aa_peak_capture(const void* x, const void* pidx, int C, int batch, long long L,
+                               int lag, int E, long long base, float noise_floor, void* cap,
+                               void* stream) {
+  if (C < 2 || C % 2 || lag < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return (int)cudaSuccess;
+  CapArgs a{};
+  a.x = (const int16_t*)x;
+  a.pidx = (const int*)pidx;
+  a.cap = (float*)cap;
+  a.C = C;
+  a.batch = batch;
+  a.L = (int)L;
+  a.lag = lag;
+  a.E = E;
+  a.base = (int)base;
+  a.noise_floor = noise_floor;
+  const long long slots = (long long)batch * E;
+  const unsigned grid = (unsigned)((slots + kCapWarps - 1) / kCapWarps);
+  aa_peak_capture_kernel<<<grid, 32 * kCapWarps, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

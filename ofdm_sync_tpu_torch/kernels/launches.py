@@ -7,9 +7,13 @@ mode the launch ran in (kernel A: ``corr_above`` / ``full`` /
 ``corr_energy``, ``primed``, ``strided`` for a view read in place, and
 ``exact_i16`` for int16 codes of up to two branches without a history,
 which take its exact integer path; kernels B, C, D: ``primed``, the
-carried-state mode, which for D is its magnitude mode; B: ``capture`` for
+carried-state mode, which for D is its magnitude mode, and the peak
+capture's ``primed`` for a call at a global base; B: ``capture`` for
 a launch that reads channels at each slot's peak; C: ``detect`` for its
-detect mode (M, the tracked |P|^2 and the gate input); D's IQ mode with a
+detect mode (the tracked |P|^2 and the gate input above, with P and M),
+``gate_input`` for a detect launch that writes only the tracked |P|^2 and
+above (int16 codes without a history), whose P and M the peak capture
+(`aa_peak_capture`) forms at a table's peaks instead; D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 ``int16`` for a chunk of int16 codes).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.
@@ -19,14 +23,14 @@ so a span, a launch count and a kernel line up.
 
 from __future__ import annotations
 
-from ofdm_sync_tpu_torch.kernels.aa_fused import aa_metric
+from ofdm_sync_tpu_torch.kernels.aa_fused import aa_metric, aa_peak_capture
 from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import gate_events, minn_rtl_metric, minn_rtl_step
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_metric
 
-#: one wrapper per kernel: A, B, C, D, E, F
+#: one wrapper per kernel: A, B, C, D, E, F and C's peak capture
 KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols,
-                   minn_rtl_step)
+                   minn_rtl_step, aa_peak_capture)
 
 
 def reset_launch_counts() -> None:

@@ -13,7 +13,10 @@ These are the plain versions of the CUDA kernels in `kernels/csrc/`:
 * [A][A]: the metric (kernel C, `aa_metric.cu`): lag-L products combined
   over branches in float64, L-window sums from float64 cumulative sums,
   then the gate input (`aa_detect_step`).  Integer-valued input makes
-  every step exact, so kernel C and this version agree bit for bit.
+  every step exact, so kernel C and this version agree bit for bit.  The
+  peak capture (`aa_metric.cu`'s `aa_peak_capture`): P_re, P_im and M
+  formed again at given peaks from int16 codes, in integers
+  (`aa_peak_capture_plain`), equal to the metric read at those peaks.
 * Zadoff-Chu CFAR: the gate input of kernel D (`zc_cfar.cu`), on a given
   correlation magnitude (`zc_cfar_planar`) or from the matched filter's
   output and the IQ (`zc_iq_planar`: per-branch window energy,
@@ -202,6 +205,46 @@ def aa_detect_step(P_re: torch.Tensor, P_im: torch.Tensor, R: torch.Tensor, L: i
     track = P_re * P_re + P_im * P_im
     M, valid = _aa_normalized(track, R, L, base_index)
     return track, M, valid & (M >= threshold)
+
+
+def aa_peak_capture_plain(iq: torch.Tensor, peak_idx: torch.Tensor, L: int, *,
+                          base_index: int = 0) -> torch.Tensor:
+    """P_re, P_im and M of the [A][A] metric at each peak, formed from the
+    codes: iq (..., branches, 2, n) int16 without a history, ``peak_idx``
+    (..., E) global sample indices -> (..., 3, E) float32 [P_re, P_im, M],
+    zero where ``peak_idx - base_index`` lies outside [0, n).
+
+    The window sums are int64 (exact: the int16 products and their sums stay
+    far below 2^53), each rounded once to float32 through float64, then
+    ``track`` and M as `aa_detect_step` forms them; so the result equals
+    `aa_metric_planar` -> `aa_detect_step` read at the peaks, bit for bit."""
+    if iq.dtype != torch.int16:
+        raise TypeError(f"expected int16 codes, got {iq.dtype}")
+    x = iq.to(torch.int64)
+    i, q = x[..., 0, :], x[..., 1, :]
+    i_d, q_d = shift_right(i, L), shift_right(q, L)
+    n = iq.shape[-1]
+    local = peak_idx.to(torch.int64) - base_index
+    inside = (local >= 0) & (local < n)
+    at = local.clamp(0, max(n - 1, 0))
+    before = at - L  # the window is (at - L, at]
+
+    def window(u):
+        if n == 0:
+            return torch.zeros(at.shape, dtype=torch.float32, device=iq.device)
+        cs = torch.cumsum(u.sum(dim=-2), dim=-1)
+        head = torch.where(before >= 0, cs.gather(-1, before.clamp_min(0)), 0)
+        return (cs.gather(-1, at) - head).to(torch.float64).to(torch.float32)
+
+    P_re = window(i * i_d + q * q_d)
+    P_im = window(q * i_d - i * q_d)
+    R = window(i * i + q * q)
+    track = P_re * P_re + P_im * P_im
+    valid = base_index + at >= L
+    Rc = R.clamp_min(1e-12)
+    M = torch.where(valid & (R > 1e-6 * L), (track / (Rc * Rc)).clamp_max(1.0),
+                    torch.zeros_like(R))
+    return torch.stack([torch.where(inside, v, 0.0) for v in (P_re, P_im, M)], dim=-2)
 
 
 def _aa_normalized(track: torch.Tensor, R: torch.Tensor, L: int, base_index: int = 0):

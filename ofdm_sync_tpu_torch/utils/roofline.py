@@ -67,6 +67,15 @@ def c_work(batch, L, C, itemsize, out_bytes, hist_len=0):
     return nbytes, batch * L * (6 * C + 10)
 
 
+def cap_work(slots, valid, L, C):
+    """The [A][A] peak capture (`aa_peak_capture`): each slot's peak index
+    read and its three float32 channels written once, and for each of the
+    ``valid`` slots with a peak the 2L int16 codes of each of C planes
+    before it read once; per code 6 operations (C/2 branches x 6 products
+    and 6 sums a sample), a few more a slot for M."""
+    return slots * (4 + 12) + valid * 2 * L * C * 2, valid * (6 * C * L + 10)
+
+
 def d_mag_work(batch, L, hist_len=0):
     """Kernel D in magnitude mode: the magnitude read once, above written
     once; 8 flops per sample."""

@@ -1,7 +1,9 @@
 """The [A][A] batch detector's span and launch counters, in the style of
 `test_torch_spans.py`: ``ofdm_sync.aa_detect_fused`` is recorded once a
 call under torch.profiler with kernel C's and kernel B's wrapper spans
-nested in it; the CPU path counts no launch; on the card one call counts
+nested in it; the CPU path counts no launch; on the card one call on int16
+codes counts C's ``detect`` and ``gate_input`` modes, B in its plain mode
+and one launch of the peak capture, and one call on float32 counts
 C's ``detect`` mode and B's ``capture`` mode.  This file imports no JAX, so
 on a card it runs as
 
@@ -74,8 +76,12 @@ def test_cpu_path_counts_no_launch():
 
 @pytest.mark.gpu
 def test_cuda_detect_counts_its_modes():
-    """One call on the card: kernel C once in detect mode, kernel B once in
-    capture mode, neither primed; the Minn detector's B counts no capture."""
+    """One call on the card.  On int16 codes (no history): kernel C once on
+    the gate input alone (modes ``detect`` and ``gate_input``), B once in
+    its plain mode, then the peak capture once, nothing primed, with the
+    capture's spans inside the detector's.  On float32: C
+    once in detect mode, B once in capture mode.  The Minn detector's B
+    counts no capture."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -85,7 +91,19 @@ def test_cuda_detect_counts_its_modes():
     table, _, _ = _detect(dev, batch=8, n=16384)
     torch.cuda.synchronize()
     counts, modes = launch_counts(), mode_launch_counts()
-    assert counts["aa_metric"] == counts["gate_events"] == 1
+    assert counts["aa_metric"] == counts["gate_events"] == counts["aa_peak_capture"] == 1
+    assert modes == {"aa_metric/detect": 1, "aa_metric/gate_input": 1}
+    assert bool(table.valid.any())
+    spans = _spans(lambda: _detect(dev, batch=8, n=16384))
+    cap = [e for e in spans if e.name == profiling.wrapper_spans("aa_peak_capture").call]
+    assert len(cap) == 1 and cap[0].cpu_parent.name == DETECT
+
+    reset_launch_counts()
+    x = _codes((4, 8, 16384), dtype=torch.float32, device=dev)
+    table, _, _ = AA.aa_detect_fused(x, half_len=L, hysteresis=16)
+    torch.cuda.synchronize()
+    counts, modes = launch_counts(), mode_launch_counts()
+    assert counts["aa_metric"] == counts["gate_events"] == 1 and counts["aa_peak_capture"] == 0
     assert modes == {"aa_metric/detect": 1, "gate_events/capture": 1}
     assert bool(table.valid.any())
     from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F

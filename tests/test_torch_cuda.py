@@ -931,7 +931,9 @@ def test_cuda_bench_checks_small(cuda):
     """The bench's five on-card checks (`ofdm_sync_tpu_torch.bench`) at a
     small shape: kernels A + B, D (IQ) + B, C + B with capture and C's
     metric mode, E, and the sharded detect at mesh (1, 1) over NCCL, each
-    against its plain version; every kernel of them (A-E) launched."""
+    against its plain version; every kernel of them (A-E) launched, and
+    neither F nor the [A][A] peak capture (its route needs int16 codes; the
+    checks' [A][A] input is float32)."""
     from ofdm_sync_tpu_torch import bench
     from ofdm_sync_tpu_torch.testing import minn_stimulus, zc_iq_stimulus
 
@@ -943,7 +945,8 @@ def test_cuda_bench_checks_small(cuda):
     assert bench.check_mf(zc_iq_stimulus(2, 8192, ref, cuda, seed=4, events=[(0, 1000)]),
                           taps) <= bench.MF_RTOL
     bench.check_sharded(minn_stimulus(16, 8192, 512, cuda, seed=5)[0])
-    # kernels A-E; F, the stream step, is no part of the five checks
+    # kernels A-E; F, the stream step, and the peak capture are no part of
+    # the five checks
     counts = launch_counts()
-    assert counts.pop("minn_rtl_step") == 0
+    assert counts.pop("minn_rtl_step") == 0 and counts.pop("aa_peak_capture") == 0
     assert all(n >= 1 for n in counts.values()), counts

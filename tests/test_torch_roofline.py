@@ -56,6 +56,18 @@ def test_f_work_is_the_step_without_corr_and_above():
     assert RL.bound(*RL.f_work(512, 16384, 4, 4, 1536, 0))[0] < composed
 
 
+def test_cap_work_counts_the_windows_of_valid_slots():
+    """The capture at the [A][A] cell's shape: 512 x 8 slots, ~4 with a
+    peak a stream, L = 512, two branches: 16 B a slot and 8 KiB a peak,
+    bound by its bytes."""
+    nbytes, flops = RL.cap_work(4096, 2048, 512, 4)
+    assert nbytes == 4096 * 16 + 2048 * 8192
+    assert flops == 2048 * (24 * 512 + 10)
+    t, by = RL.bound(nbytes, flops)
+    assert by == "bytes" and t == pytest.approx(nbytes / 3.35e9)
+    assert RL.cap_work(4096, 0, 512, 4) == (4096 * 16, 0)
+
+
 def test_bound_sum_and_gated_samples():
     above = torch.zeros((2, 100), dtype=torch.bool)
     above[0, 10] = above[1, 50] = above[1, 52] = True
@@ -66,7 +78,7 @@ def test_bound_sum_and_gated_samples():
 
 def test_chip_smoke_keeps_no_copy_of_the_counts():
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    for name in ("bound", "a_work", "b_work", "c_work", "d_mag_work", "d_iq_work", "e_work",
-                 "gated_samples", "marginal_us", "minn_stimulus", "zc_iq_stimulus"):
+    for name in ("bound", "a_work", "b_work", "c_work", "cap_work", "d_mag_work", "d_iq_work",
+                 "e_work", "gated_samples", "marginal_us", "minn_stimulus", "zc_iq_stimulus"):
         assert not re.search(rf"^def {name}\(", src, re.M), name
     assert "from ofdm_sync_tpu_torch.utils.roofline import" in src
