@@ -75,12 +75,14 @@
 // 4- or 8-byte) stores.  Samples past the stream end are zero and are never
 // written.
 //
-// The float path: 4 samples a thread, CTAs of 256 threads (tiles of 1024);
-// x[n - Q] and the window tails come from the rings (the last Q samples of
-// every plane and the last 3Q quarter products and powers); int16 input is
-// converted to float32 before any product, the products are summed over the
-// planes in float32, the increments scanned in float64.  An SM holds four
-// CTAs (64 registers a thread, no spills; at Q = 512 each CTA's rings take
+// The float path is the Minn-RTL metric walk of minn_walk.cuh, which
+// kernel F walks too: 4 samples a thread, CTAs of 256 threads (tiles of
+// 1024), x[n - Q] and the window tails from shared-memory rings, float32
+// products summed over the planes, float64 window sums.  Kernel A's own part
+// is the span (from its halo, or from 3Q into the history at the stream's
+// head; the corr/energy mode walks without the smoothing scan) and the sink
+// that writes the outputs in [s0, s1) and carry_out.  An SM holds four CTAs
+// (64 registers a thread, no spills; at Q = 512 each CTA's rings take
 // 45 KB), three beyond two branches.
 //
 // The exact path: 8 samples a thread, CTAs of 128 threads (tiles of 1024),
@@ -116,16 +118,14 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "block_scan.cuh"
+#include "minn_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;  // consecutive samples per thread (float path)
-constexpr int kTile = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
+namespace walk = ofdm::walk;
+
 // the exact path: consecutive samples per thread, threads (warps) per CTA
 constexpr int kXItems = 8;
 constexpr int kXThreads = 128;
@@ -134,7 +134,7 @@ constexpr int kXTile = kXThreads * kXItems;
 // CTAs per SM: the float path 4 (at most 64 registers a thread) up to two
 // branches, 3 beyond; the exact path 4 (at most 128)
 constexpr int min_blocks(int planes, bool exact) { return exact ? 4 : planes > 4 ? 3 : 4; }
-constexpr int block_threads(bool exact) { return exact ? kXThreads : kThreads; }
+constexpr int block_threads(bool exact) { return exact ? kXThreads : walk::kThreads; }
 constexpr int kMinSpanTiles = 16;
 
 struct Args {
@@ -144,7 +144,7 @@ struct Args {
   const float* carry_in;  // (batch,) smoothing register before sample 0, or null
   int C, batch, L, Q, halo, hist_len, scan, base, valid_from;
   int spans, span;        // spans per stream, samples per span
-  int ring, ring_up;      // x ring (>= Q + kTile) and u/p ring (>= 3Q + kTile) lengths;
+  int ring, ring_up;      // the float path's x and u/p ring lengths (minn_walk.cuh);
                           // the exact path: one length for its three rings (>= 3Q + kXTile)
   int vin;                // every input row starts 16-byte (int16: 8-byte) aligned: vector loads
   int vec;                // L % 4 == 0: vector stores of the (batch, L) outputs
@@ -161,282 +161,56 @@ struct Args {
   unsigned int* failed;   // += tiles walked on the float route, or null
 };
 
-template <typename T>
-struct Raw4;  // 4 consecutive samples as loaded
-template <>
-struct Raw4<float> {
-  using type = float4;
-  static __device__ __forceinline__ float4 f(float4 v) { return v; }
-};
-template <>
-struct Raw4<int16_t> {
-  using type = uint2;  // two registers, unpacked when converted
-  static __device__ __forceinline__ float4 f(uint2 v) {
-    return make_float4((float)(int16_t)(v.x & 0xffffu), (float)((int)v.x >> 16),
-                       (float)(int16_t)(v.y & 0xffffu), (float)((int)v.y >> 16));
-  }
-};
-
-__device__ __forceinline__ float get(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// 4 ring entries from index i (wrapping at len); aligned: one 16-byte access
-__device__ __forceinline__ float4 ring_ld(const float* r, int i, int len, bool aligned) {
-  if (aligned) return *reinterpret_cast<const float4*>(r + i);
-  float v[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = r[i + k < len ? i + k : i + k - len];
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void ring_st(float* r, int i, int len, bool aligned, float4 v) {
-  if (aligned) {
-    *reinterpret_cast<float4*>(r + i) = v;
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r[i + k < len ? i + k : i + k - len] = get(v, k);
-}
-
-__device__ __forceinline__ int ring_next(int i, int len) {
-  i += kTile;
-  return i >= len ? i - len : i;
-}
-
-
 // ---- the float path (float32, and every launch with a history) -----------
 
+// The span's walk (minn_walk.cuh) from the halo before it, or from the
+// history at the stream's head, and its outputs [s0, s1) from the sink.
 template <typename T, int kC>
 __device__ __forceinline__ void float_walk(const Args& a) {
-  extern __shared__ float4 smem4[];
-  float* xr = reinterpret_cast<float*>(smem4);  // C planes of a.ring samples
-  float* ur = xr + a.C * a.ring;                // quarter products, a.ring_up
-  float* pr = ur + a.ring_up;                   // powers, a.ring_up
-  __shared__ double2 s_wsum[kWarps];
-  __shared__ float2 s_wmap[kWarps];
-  __shared__ float s_reg[2];
-  __shared__ double2 s_win[2];
-
-  using R4 = Raw4<T>;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kI = walk::kItems;
   const int b = blockIdx.x / a.spans, sp = blockIdx.x % a.spans;
-  const int Q = a.Q, L = a.L;
+  const int L = a.L;
   const int s0 = sp * a.span, s1 = min(s0 + a.span, L);
-  const int h3 = (3 * Q + 3) & ~3;
-  // walk start: the halo before the span, or the history at the stream's head
-  const int w0 = a.scan ? max(s0 - a.halo, -h3) : s0 - h3;
-  const int js = w0 + 3 * Q - 1;  // first sample whose 3Q window lies after w0
-  const size_t plane = (size_t)a.x_plane;
-  const T* xs = (const T*)a.x + (size_t)b * (size_t)a.x_row;
-  const float* hs = a.hist ? a.hist + (size_t)b * (size_t)a.hist_len : nullptr;
-  const size_t hplane = (size_t)a.batch * (size_t)a.hist_len;
-  const bool qa = (Q & 3) == 0;  // ring accesses at a Q offset are 16-byte aligned
-  const float decay = 1.0f - a.alpha;
-  const float carry0 = a.carry_in ? a.carry_in[b] : 0.0f;
+  const int h3 = walk::round4(3 * a.Q);
+  const size_t row = (size_t)b * (size_t)L;
 
-  // sample n of plane c: the stream, the history before it, zero elsewhere
-  auto ld = [&](int c, int n) -> float {
-    if (n >= 0) return n < L ? (float)xs[(size_t)c * plane + (size_t)n] : 0.0f;
-    if (hs && n >= -a.hist_len) return hs[(size_t)c * hplane + (size_t)(a.hist_len + n)];
-    return 0.0f;
-  };
-  auto fast = [&](int n0) { return a.vin && n0 >= 0 && n0 + kItems <= L; };
-
-  // prologue: x[w0 - Q, w0) into the ring, the u/p rings zero (the window
-  // sums start from zero at w0)
-  for (int i = tid; i < Q; i += kThreads)
-    for (int c = 0; c < a.C; ++c) xr[c * a.ring + i] = ld(c, w0 - Q + i);
-  for (int i = tid; i < a.ring_up; i += kThreads) {
-    ur[i] = 0.0f;
-    pr[i] = 0.0f;
-  }
-  if (tid == 0) {
-    s_reg[0] = 0.0f;
-    s_win[0] = make_double2(0.0, 0.0);
-  }
-
-  // ring indices of this thread's samples n0..n0+3 and of their delays
-  int ix_w = Q + kItems * tid;      // x[n0]
-  int ix_d = kItems * tid;          // x[n0 - Q]
-  int iu_w = 3 * Q + kItems * tid;  // u[n0], p[n0]
-  int iu_2 = Q + kItems * tid;      // u[n0 - 2Q]
-  int iu_3 = kItems * tid;          // p[n0 - 3Q]
-
-  // the next tile's loads in flight while this one is scanned
-  typename R4::type nx[kC];
-  bool nf = fast(w0 + kItems * tid);
-  if (nf) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      if (c < a.C)
-        nx[c] = __ldg(reinterpret_cast<const typename R4::type*>(xs + c * plane + w0 +
-                                                                 kItems * tid));
-  }
-
-  int parity = 0;
-  for (int t0 = w0; t0 < s1; t0 += kTile, parity ^= 1) {
-    const int n0 = t0 + kItems * tid;
-    // 1. this tile's samples into the ring, the next tile's loads issued
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      if (c >= a.C) break;
-      const float4 v = nf ? R4::f(nx[c])
-                          : make_float4(ld(c, n0), ld(c, n0 + 1), ld(c, n0 + 2), ld(c, n0 + 3));
-      ring_st(xr + c * a.ring, ix_w, a.ring, qa, v);
-    }
-    nf = t0 + kTile < s1 && fast(n0 + kTile);
-    if (nf) {
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        if (c < a.C)
-          nx[c] = __ldg(reinterpret_cast<const typename R4::type*>(xs + c * plane + n0 + kTile));
-    }
-    __syncthreads();
-
-    // 2. quarter products and powers, summed over the planes in f32
-    float u[kItems] = {0.0f, 0.0f, 0.0f, 0.0f}, pw[kItems] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      if (c >= a.C) break;
-      const float4 v = ring_ld(xr + c * a.ring, ix_w, a.ring, qa);
-      const float4 vd = ring_ld(xr + c * a.ring, ix_d, a.ring, true);
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        u[k] = __fadd_rn(u[k], __fmul_rn(get(v, k), get(vd, k)));
-        pw[k] = __fadd_rn(pw[k], __fmul_rn(get(v, k), get(v, k)));
-      }
-    }
-    ring_st(ur, iu_w, a.ring_up, qa, make_float4(u[0], u[1], u[2], u[3]));
-    ring_st(pr, iu_w, a.ring_up, qa, make_float4(pw[0], pw[1], pw[2], pw[3]));
-    if (2 * Q < kTile) __syncthreads();  // else the tails read below are older tiles'
-
-    // 3. window sums: float64 increments, scanned over the tile
-    const float4 u2 = ring_ld(ur, iu_2, a.ring_up, qa);
-    const float4 p3 = ring_ld(pr, iu_3, a.ring_up, true);
-    double du[kItems], dp[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      du[k] = (double)u[k] - (double)get(u2, k);
-      dp[k] = (double)pw[k] - (double)get(p3, k);
-      if (k) {
-        du[k] += du[k - 1];
-        dp[k] += dp[k - 1];
-      }
-    }
-    double2 inc = make_double2(du[kItems - 1], dp[kItems - 1]);
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const double2 o = ofdm::shfl_up2(inc, d);
-      if (lane >= d) inc = ofdm::add2(o, inc);
-    }
-    double2 exc = ofdm::shfl_up2(inc, 1);
-    if (lane == 0) exc = make_double2(0.0, 0.0);
-    if (lane == 31) s_wsum[warp] = inc;
-    __syncthreads();
-    double2 before = make_double2(0.0, 0.0);
-#pragma unroll
-    for (int w = 0; w < kWarps - 1; ++w)
-      if (w < warp) before = ofdm::add2(before, s_wsum[w]);
-    const double2 w23 = s_win[parity];  // the window sums before the tile
-    const double o2 = before.x + exc.x, o3 = before.y + exc.y;
-    float cp[kItems], e[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      cp[k] = fmaxf((float)(w23.x + (o2 + du[k])), 0.0f);
-      e[k] = (float)(w23.y + (o3 + dp[k]));
-    }
-    if (tid == kThreads - 1)  // the sums after the tile, for the next one
-      s_win[parity ^ 1] = make_double2(w23.x + (o2 + du[kItems - 1]),
-                                       w23.y + (o3 + dp[kItems - 1]));
+  // the tile's outputs of samples n0..n0+3 in [s0, s1); sm null: corr/energy
+  auto sink = [&](int, int n0, const float (&cp)[kI], const float (&e)[kI], const float* sm) {
     const bool out = n0 >= s0 && n0 < s1;  // n0 is 4-aligned, like s0
-    const bool vout = out && a.vec && n0 + kItems <= s1;
-    const size_t row = (size_t)b * (size_t)L;
-
-    if (!a.scan) {  // corr/energy: no IIR, every output stands alone
-      if (vout) {
-        if (a.corr) *reinterpret_cast<float4*>(a.corr + row + n0) = make_float4(cp[0], cp[1], cp[2], cp[3]);
-        if (a.energy) *reinterpret_cast<float4*>(a.energy + row + n0) = make_float4(e[0], e[1], e[2], e[3]);
-      } else if (out) {
+    const bool vout = out && a.vec && n0 + kI <= s1;
+    uint32_t ab = 0u;
+    if (sm) {
 #pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          if (n0 + k >= s1) break;
-          if (a.corr) a.corr[row + n0 + k] = cp[k];
-          if (a.energy) a.energy[row + n0 + k] = e[k];
-        }
-      }
-    } else {
-      // 4. the smoothing recurrence: affine maps composed over the tile
-      // from the register entering it; identity before js and before
-      // n = -1, the carried register at -1
-      float2 m[kItems];
-      float2 seg = make_float2(1.0f, 0.0f);
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        const int n = n0 + k;
-        if (n < js || n < -1)
-          m[k] = make_float2(1.0f, 0.0f);
-        else if (n == -1)
-          m[k] = make_float2(0.0f, carry0);
-        else
-          m[k] = make_float2(decay, a.base + n >= a.valid_from ? a.alpha * cp[k] : 0.0f);
-        seg = ofdm::compose(seg, m[k]);
-      }
-      float2 minc = seg;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float2 o = ofdm::shfl_up_f2(minc, d);
-        if (lane >= d) minc = ofdm::compose(o, minc);
-      }
-      float2 mexc = ofdm::shfl_up_f2(minc, 1);
-      if (lane == 0) mexc = make_float2(1.0f, 0.0f);
-      if (lane == 31) s_wmap[warp] = minc;
-      __syncthreads();
-      float s = s_reg[parity];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w)
-        if (w < warp) s = fmaf(s_wmap[w].x, s, s_wmap[w].y);
-      s = fmaf(mexc.x, s, mexc.y);
-      float sm[kItems];
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        s = fmaf(m[k].x, s, m[k].y);
-        sm[k] = s;
-      }
-      if (tid == kThreads - 1) s_reg[parity ^ 1] = s;  // the register after the tile
-      uint32_t ab = 0u;
-#pragma unroll
-      for (int k = 0; k < kItems; ++k)
+      for (int k = 0; k < kI; ++k)
         if (a.base + n0 + k >= a.valid_from &&
             __fmul_rn(sm[k], a.frac_scale) >= __fmul_rn(e[k], a.thr))
           ab |= 1u << (8 * k);
-      if (vout) {
-        if (a.corr) *reinterpret_cast<float4*>(a.corr + row + n0) = make_float4(cp[0], cp[1], cp[2], cp[3]);
-        if (a.smooth) *reinterpret_cast<float4*>(a.smooth + row + n0) = make_float4(sm[0], sm[1], sm[2], sm[3]);
-        if (a.energy) *reinterpret_cast<float4*>(a.energy + row + n0) = make_float4(e[0], e[1], e[2], e[3]);
-        if (a.above) *reinterpret_cast<uint32_t*>(a.above + row + n0) = ab;
-      } else if (out) {
+    }
+    if (vout) {
+      if (a.corr) *reinterpret_cast<float4*>(a.corr + row + n0) = make_float4(cp[0], cp[1], cp[2], cp[3]);
+      if (sm && a.smooth) *reinterpret_cast<float4*>(a.smooth + row + n0) = make_float4(sm[0], sm[1], sm[2], sm[3]);
+      if (a.energy) *reinterpret_cast<float4*>(a.energy + row + n0) = make_float4(e[0], e[1], e[2], e[3]);
+      if (sm && a.above) *reinterpret_cast<uint32_t*>(a.above + row + n0) = ab;
+    } else if (out) {
 #pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          if (n0 + k >= s1) break;
-          if (a.corr) a.corr[row + n0 + k] = cp[k];
-          if (a.smooth) a.smooth[row + n0 + k] = sm[k];
-          if (a.energy) a.energy[row + n0 + k] = e[k];
-          if (a.above) a.above[row + n0 + k] = (uint8_t)(ab >> (8 * k));
-        }
-      }
-      if (a.carry_out && out) {
-#pragma unroll
-        for (int k = 0; k < kItems; ++k)
-          if (n0 + k == L - 1) a.carry_out[b] = sm[k];
+      for (int k = 0; k < kI; ++k) {
+        if (n0 + k >= s1) break;
+        if (a.corr) a.corr[row + n0 + k] = cp[k];
+        if (sm && a.smooth) a.smooth[row + n0 + k] = sm[k];
+        if (a.energy) a.energy[row + n0 + k] = e[k];
+        if (sm && a.above) a.above[row + n0 + k] = (uint8_t)(ab >> (8 * k));
       }
     }
-    ix_w = ring_next(ix_w, a.ring);
-    ix_d = ring_next(ix_d, a.ring);
-    iu_w = ring_next(iu_w, a.ring_up);
-    iu_2 = ring_next(iu_2, a.ring_up);
-    iu_3 = ring_next(iu_3, a.ring_up);
-  }
+    if (sm && a.carry_out && out) {
+#pragma unroll
+      for (int k = 0; k < kI; ++k)
+        if (n0 + k == L - 1) a.carry_out[b] = sm[k];
+    }
+  };
+  if (a.scan)
+    walk::minn_walk<T, kC, true>(a, b, max(s0 - a.halo, -h3), s1, sink);
+  else  // corr/energy: no IIR, every output stands alone
+    walk::minn_walk<T, kC, false>(a, b, s0 - h3, s1, sink);
 }
 
 
@@ -519,11 +293,6 @@ __device__ __forceinline__ void ints_st(int* r, int i, const int (&v)[kXItems]) 
 #pragma unroll
   for (int j = 0; j < kXItems; j += 4)
     *reinterpret_cast<int4*>(r + i + j) = make_int4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-}
-
-__device__ __forceinline__ int ring_next(int i, int len, int tile) {
-  i += tile;
-  return i >= len ? i - len : i;
 }
 
 __device__ __forceinline__ longlong2 add_ll2(longlong2 x, longlong2 y) {
@@ -875,10 +644,10 @@ __device__ __forceinline__ void exact_walk(const Args& a) {
     // a float-route tile read the x ring after the scan's barrier: in the
     // corr/energy mode (no barrier since) the next tile must not store yet
     if (!exact && !a.scan) __syncthreads();
-    iw = ring_next(iw, R, kT);
-    i1 = ring_next(i1, R, kT);
-    i2 = ring_next(i2, R, kT);
-    i3 = ring_next(i3, R, kT);
+    iw = walk::ring_next(iw, R, kT);
+    i1 = walk::ring_next(i1, R, kT);
+    i2 = walk::ring_next(i2, R, kT);
+    i3 = walk::ring_next(i3, R, kT);
   }
   if (a.failed && failed) atomicAdd(a.failed, failed);
 }
@@ -899,28 +668,17 @@ int launch(Args& a, void* stream) {
   static bool attr = false;
   static int slots_smem = -1, slots = 0;
   auto kernel = minn_rtl_metric_kernel<T, kC, kExact>;
-  constexpr int tile = kExact ? kXTile : kTile;
+  constexpr int tile = kExact ? kXTile : walk::kTile;
   const int smem = kExact ? a.C * a.ring * (int)sizeof(int16_t) + 2 * a.ring * (int)sizeof(int) +
                                 (a.stage ? kXTile * (int)sizeof(float) : 0)
                           : (a.C * a.ring + 2 * a.ring_up) * (int)sizeof(float);
   if (!attr) {  // once per process: allow the largest dynamic shared memory
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa{};
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin - (int)fa.sharedSizeBytes);
+    const cudaError_t err = walk::allow_smem(kernel);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
   if (smem != slots_smem) {
-    int dev = 0, sms = 0, per = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, block_threads(kExact), smem);
-    slots = std::max(sms * per, 1);
+    slots = walk::cta_slots(kernel, smem, block_threads(kExact));
     slots_smem = smem;
   }
   const int tiles = (a.L + tile - 1) / tile;
@@ -1007,8 +765,8 @@ extern "C" int minn_rtl_metric(int is_i16, int exact, const void* x, const void*
     return launch<int16_t, 4, true>(a, stream);
   }
   a.halo = (halo + 3) & ~3;
-  a.ring = ((Q + kTile + 3) & ~3);
-  a.ring_up = ((3 * Q + kTile + 3) & ~3);
+  a.ring = walk::round4(Q) + walk::kTile;
+  a.ring_up = walk::round4(3 * Q) + walk::kTile;
   a.vin = ((uintptr_t)x % (is_i16 ? 8 : 16) == 0) && x_plane % 4 == 0 && x_row % 4 == 0;
   return is_i16 ? launch_planes<int16_t>(a, stream) : launch_planes<float>(a, stream);
 }

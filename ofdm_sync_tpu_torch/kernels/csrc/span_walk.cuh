@@ -1,4 +1,6 @@
-// The span walk of kernels C (aa_metric.cu) and D (zc_cfar.cu).
+// The span walk of kernels C (aa_metric.cu) and D (zc_cfar.cu); the
+// Minn-RTL metric walk of kernels A and F (minn_walk.cuh) is built from its
+// pieces too.
 //
 // A CTA of 256 threads walks a span of consecutive 1024-sample tiles of one
 // stream in order; each thread holds 4 consecutive samples of a tile.  Rows
@@ -9,8 +11,7 @@
 // 16-byte stores) and reads the delayed ones (16-byte loads where the delay
 // keeps them aligned).  Window sums are float64 running values carried from
 // tile to tile; the tile's increments are scanned with warp shuffles and one
-// exchange of warp totals through shared memory.  Kernel A
-// (minn_rtl_metric.cu) keeps its own copy of these pieces.
+// exchange of warp totals through shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -136,8 +137,8 @@ __device__ __forceinline__ void ring_st(double* r, int i, const double (&v)[kIte
   *reinterpret_cast<double2*>(r + i + 2) = make_double2(v[2], v[3]);
 }
 
-__device__ __forceinline__ int ring_next(int i, int len) {
-  i += kTile;
+__device__ __forceinline__ int ring_next(int i, int len, int step = kTile) {
+  i += step;
   return i >= len ? i - len : i;
 }
 
@@ -183,13 +184,13 @@ inline int span_tiles(int batch, int tiles, int halo, int slots) {
 }
 
 // CTA slots of a kernel on the current device at `smem` bytes of dynamic
-// shared memory
+// shared memory and `threads` threads a CTA
 template <typename K>
-int cta_slots(K kernel, int smem) {
+int cta_slots(K kernel, int smem, int threads = kThreads) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, smem);
   return std::max(sms * per, 1);
 }
 

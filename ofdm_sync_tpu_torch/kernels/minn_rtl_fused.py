@@ -37,10 +37,13 @@ minn_rtl_fused_stream_step` runs it, one compiled program a chunk: the
 gate-carry rule, A's primed metric, B's carried gate walk and the history
 roll in one launch, one CTA a stream walking the chunk from its history,
 corr and above never in HBM, the table, the register, the gate carry and
-the new history in one allocation.  Its plain version,
-`minn_rtl_step_plain`, is the same function composed (`gate_continuation`,
-`minn_rtl_detect_fused`, `new_history`); on card tensors that composition
-launches A and B.
+the new history in one allocation.  F and kernel A's float path (float32
+input, or any launch with a history) run one metric walk, the device
+function of `csrc/minn_walk.cuh`: the same arithmetic in the same order,
+so F's corr, above and register are the bits of A's span at a stream's
+head.  F's plain version, `minn_rtl_step_plain`, is the same function
+composed (`gate_continuation`, `minn_rtl_detect_fused`, `new_history`); on
+card tensors that composition launches A and B.
 
 Each wrapper takes the JAX package's channel-leading layout.  On a CUDA
 tensor it launches its kernel (and counts the launch in ``.launches``, and
@@ -135,6 +138,26 @@ def _exact_smem(C: int, Q: int, mode: str) -> int:
     ring = -(-(3 * Q + _A_EXACT_TILE) // 8) * 8
     floats = sum(f != "above" for f in _A_MODES[mode])
     return (2 * C + 8) * ring + (4 * _A_EXACT_TILE if floats > 1 else 0)
+
+
+def _float_walk_smem(x: torch.Tensor, Q: int, kernel: str, what: str) -> int:
+    """Shared memory of the Minn-RTL metric walk (`csrc/minn_walk.cuh`) that
+    kernel A's float path and kernel F run: the delay line of every plane,
+    round4(Q) + 1024 samples, and the quarter-product and power rings,
+    round4(3Q) + 1024 each, in float32.  Raises where ``kernel`` cannot
+    read x (``what``): a stride along time, more than 4 branches, or rings
+    beyond the shared memory."""
+    C, L = x.shape[0], x.shape[-1]
+    if L > 1 and x.stride(-1) != 1:
+        raise ValueError(f"{kernel} reads {what} with unit stride along time, got "
+                         f"strides {x.stride()}")
+    if C > 8:
+        raise ValueError(f"{kernel} takes at most 4 branches, got {C // 2}")
+    ring = lambda n: -(-n // 4) * 4 + _A_TILE  # noqa: E731
+    smem = 4 * (C * ring(Q) + 2 * ring(3 * Q))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+    return smem
 
 
 def _planar_view(x: torch.Tensor) -> torch.Tensor:
@@ -266,15 +289,7 @@ def _minn_metric(
                 return MinnMetricRows(st.corr_positive, pick("smooth", st.smooth_metric),
                                       pick("energy", st.energy_total), st.above_threshold,
                                       carry_out)
-            if L > 1 and x.stride(-1) != 1:
-                raise ValueError(f"kernel A reads a view with unit stride along time, got "
-                                 f"strides {x.stride()}")
-            if C > 8:
-                raise ValueError(f"kernel A takes at most 4 branches, got {C // 2}")
-            ring = lambda n: -(-n // 4) * 4  # noqa: E731
-            smem = 4 * (C * ring(Q + _A_TILE) + 2 * ring(3 * Q + _A_TILE))
-            if smem > _SMEM_LIMIT:
-                raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+            _float_walk_smem(x, Q, "kernel A", "a view")
             check_index_range(base, L)
             if failed_tiles is not None and (failed_tiles.dtype != torch.int32
                                              or failed_tiles.device != x.device
@@ -669,16 +684,8 @@ def minn_rtl_step(chunk, hist, carry, gate, *, base_index, quarter_len: int, smo
                 raise TypeError("kernel F takes a float32 hist and carry and an int32 gate")
             if not (hist.is_contiguous() and carry.is_contiguous() and gate.is_contiguous()):
                 raise ValueError("kernel F needs a contiguous hist, carry and gate")
-            if L > 1 and chunk.stride(-1) != 1:
-                raise ValueError(f"kernel F reads a chunk with unit stride along time, got "
-                                 f"strides {chunk.stride()}")
-            if C > 8:
-                raise ValueError(f"kernel F takes at most 4 branches, got {C // 2}")
             Q = quarter_len
-            ring = lambda n: -(-n // 4) * 4  # noqa: E731
-            smem = 4 * (C * (ring(Q) + _A_TILE) + 2 * (ring(3 * Q) + _A_TILE))
-            if smem > _SMEM_LIMIT:
-                raise ValueError(f"quarter_len {Q} needs {smem} B of shared memory")
+            _float_walk_smem(chunk, Q, "kernel F", "a chunk")
             base = host_index(base_index)
             check_index_range(base, L)
             Lg = int(stream_len_global)

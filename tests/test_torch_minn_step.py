@@ -14,10 +14,12 @@ Tolerances: each chunk's table equal to JAX's field by field (peak values
 included) and so are gate_out and the new history; the smoothing register
 ``carry`` within CARRY_RTOL relative (the port's plain recurrence and the
 TPU kernel's truncated log-depth scan round in another order), the bound
-`test_torch_streaming_fused.py` uses.  The `gpu` test holds kernel F on the
-card to the plain step: tables and gate equal, the register within 1e-5 of
-max(1, |register|) (the kernel's chunk-parallel scan against the plain
-recurrence), history equal.
+`test_torch_streaming_fused.py` uses.  The first `gpu` test holds kernel F
+on the card to the plain step: tables and gate equal, the register within
+1e-5 of max(1, |register|) (the kernel's chunk-parallel scan against the
+plain recurrence), history equal.  The second holds F to its composition on
+the card, kernels A and B, bit for bit: the two walk the metric with one
+device function.
 """
 
 import numpy as np
@@ -263,3 +265,51 @@ def test_cuda_step_kernel_matches_plain_step():
             counts = launch_counts()
             assert counts["minn_rtl_step"] == xs.shape[-1] // chunk
             assert counts["minn_rtl_metric"] == counts["gate_events"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [37, 64, 512])
+def test_cuda_step_kernel_equals_kernels_a_and_b(q):
+    """Kernel F and its composition on the card (`minn_rtl_step_plain`:
+    kernel A primed, then kernel B carried) compute one function bit for
+    bit: F and A's float path walk the metric with one device function
+    (`csrc/minn_walk.cuh`).  From a random state (history, register, gate
+    carry, base 2^20), batch 3, chunks of 1024 and 4096 samples of float32
+    and int16 codes, each side carrying its own state: every chunk's table
+    equal, and carry_out, gate_out and the history `torch.equal`.  An odd Q
+    (37) runs the walk's unaligned delayed reads.  On the card:
+    ``python -m pytest --noconftest -p no:cacheprovider -m gpu
+    tests/test_torch_minn_step.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels A, B and F have no CPU mode)")
+    tp = T.MinnRTLStreamParams(**dict(PARAMS, quarter_len=q))
+    n, batch, base = 16384, 3, 1 << 20
+    x = _stream(batch, [[4096 - 3 * q], [9000], [2000, n - 2 * q]], seed=61 + q, n=n, q=q)
+    width = T.minn_rtl_fused_stream_init(tp, batch, device="cpu").hist.shape[-1]
+    rng = np.random.default_rng(q)
+    state0 = (torch.from_numpy(_stream(batch, [[10], [], [width - 3 * q]], seed=62 + q,
+                                       n=width, q=q)).cuda(),
+              torch.from_numpy((rng.random(batch) * 1e4).astype(np.float32)).cuda(),
+              torch.tensor([[base - 1, 3], [base - H_HYST - 1, 1], [-1, 0]],
+                           dtype=torch.int32).cuda())
+    events = 0
+    for dtype in (torch.float32, torch.int16):
+        xs = torch.from_numpy(x).to(dtype).cuda()
+        for chunk in (1024, 4096):
+            kernel, composed = state0, state0
+            reset_launch_counts()
+            for o in range(0, n, chunk):
+                c, kw = xs[..., o: o + chunk], T.minn_step_kwargs(tp, base + o)
+                tf, *out_f = F.minn_rtl_step(c, *kernel, **kw)
+                tc, *out_c = F.minn_rtl_step_plain(c, *composed, **kw)
+                what = f"Q {q} {dtype} chunk {chunk} at {o}"
+                assert_tables_equal(tc, tf, what)
+                for name, a, b in zip(("carry_out", "gate_out", "history"), out_f, out_c):
+                    assert a.dtype == b.dtype and torch.equal(a, b), f"{what}: {name}"
+                # (carry_out, gate_out, history) -> the next state (hist, carry, gate)
+                kernel, composed = [(out[2], out[0], out[1]) for out in (out_f, out_c)]
+                events += int(tf.count.sum())
+            counts = launch_counts()
+            assert counts["minn_rtl_step"] == counts["minn_rtl_metric"] == n // chunk
+            assert counts["gate_events"] == n // chunk
+    assert events > 0
