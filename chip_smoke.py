@@ -899,10 +899,12 @@ def phase_aa_headline(dev, card: str) -> dict:
 
 def aa_lean_headline(x, lag: int, events, card: str) -> dict:
     """Phase 9 on int16 codes, the route `aa_detect_fused` takes for them:
-    the whole call (kernel C on the gate input alone, B plain, the peak
-    capture) against its plain version, C's track and above against the
-    plain metric's, and the peak capture alone against
-    `aa_peak_capture_plain` on the same codes and table; their times."""
+    the whole call (kernel C on the gate input alone, on its exact path; B
+    plain; the peak capture) against its plain version, C's track and above
+    on its exact path (no tile off the exact route on these 12-bit codes)
+    and on its float path against the plain metric's, and the peak capture
+    alone against `aa_peak_capture_plain` on the same codes and table; their
+    times."""
     x16 = x.to(torch.int16)
     reset_launch_counts()
     table = check_aa_detect(x16, lag, "aa headline int16")
@@ -910,23 +912,51 @@ def aa_lean_headline(x, lag: int, events, card: str) -> dict:
     if (modes.get("aa_metric/gate_input") != 1 or counts["aa_peak_capture"] != 1
             or "gate_events/capture" in modes):
         raise AssertionError(f"aa headline int16: not the lean route: {counts} {modes}")
+    if modes.get("aa_metric/exact_i16") != 1:
+        raise AssertionError(f"aa headline int16: C not on its exact path: {modes}")
     check_aa_found(table, events, lag, "aa headline int16")
+    fails = torch.zeros(1, dtype=torch.int32, device=x16.device)
     gate_input = lambda: AF._aa_metric(x16, half_len=lag, threshold=AA_THR,  # noqa: E731
-                                       base_index=0, hist_init=None, gate_input=True)
+                                       base_index=0, hist_init=None, gate_input=True,
+                                       failed_tiles=fails)
+    # the float path on the same codes: a zero history keeps C off the exact path
+    zero_hist = torch.zeros((x16.shape[0], x16.shape[1], 1), device=x16.device)
+    gate_input_float = lambda: AF._aa_metric(  # noqa: E731
+        x16, half_len=lag, threshold=AA_THR, base_index=0, hist_init=zero_hist,
+        gate_input=True)
     o = gate_input()
+    failed_tiles = int(fails)
+    if failed_tiles:
+        raise AssertionError(f"aa headline int16: {failed_tiles} tiles off the exact route "
+                             f"on 12-bit codes")
     st, track, M, above = aa_plain(x16, lag)
     c_err = check_equal(o.track, track, "aa headline int16 C track")
     check_equal(o.above, above, "aa headline int16 C above")
+    del o
+    before = mode_launch_counts()
+    o = gate_input_float()
+    after = mode_launch_counts()
+    float_launches = (after.get("aa_metric/gate_input", 0)
+                      - before.get("aa_metric/gate_input", 0))
+    if float_launches != 1 or (after.get("aa_metric/exact_i16", 0)
+                               != before.get("aa_metric/exact_i16", 0)):
+        raise AssertionError(f"aa headline int16: C's float path not taken once: {after}")
+    c_float_err = check_equal(o.track, track, "aa headline int16 C float path track")
+    check_equal(o.above, above, "aa headline int16 C float path above")
     del o, st, track, M, above
     torch.cuda.empty_cache()
     pidx = table.peak_idx
     capture = lambda: AF.aa_peak_capture(x16, pidx, half_len=lag)  # noqa: E731
     plain_capture = lambda: aa_peak_capture_plain(F._planar_view(x16), pidx, lag)  # noqa: E731
     cap_err = check_equal(capture(), plain_capture(), "aa headline peak capture")
-    res = dict(gate_input_launches=modes["aa_metric/gate_input"],
+    res = dict(float_launches=float_launches,
+               exact_launches=modes["aa_metric/exact_i16"], failed_tiles=failed_tiles,
                capture_launches=counts["aa_peak_capture"], c_err=c_err, cap_err=cap_err,
+               c_float_err=c_float_err,
                fused_ms=cuda_ms(lambda: AF.aa_detect_fused(x16, half_len=lag)),
                c_ms=cuda_ms(gate_input), c_kernel_ms=kernel_ms(gate_input),
+               c_float_ms=cuda_ms(gate_input_float),
+               c_float_kernel_ms=kernel_ms(gate_input_float),
                plain_c_ms=cuda_ms(lambda: aa_plain(x16, lag)),
                cap_ms=cuda_ms(capture), cap_kernel_ms=kernel_ms(capture),
                plain_cap_ms=cuda_ms(plain_capture), valid_slots=int(table.valid.sum()),
@@ -935,7 +965,9 @@ def aa_lean_headline(x, lag: int, events, card: str) -> dict:
     del x16
     torch.cuda.empty_cache()
     log(f"  int16 codes, the lean route: C+B+capture {res['fused_ms']:.3f} ms; C on the gate "
-        f"input {res['c_ms']:.3f} ms (profiler {res['c_kernel_ms']}), plain metric "
+        f"input, exact path {res['c_ms']:.3f} ms (profiler {res['c_kernel_ms']}, "
+        f"{failed_tiles} tiles off the exact route), float path {res['c_float_ms']:.3f} ms "
+        f"(profiler {res['c_float_kernel_ms']}), plain metric "
         f"{res['plain_c_ms']:.3f}; the peak capture {res['cap_ms']:.4f} ms (profiler "
         f"{res['cap_kernel_ms']}) over {res['valid_slots']} valid slots, plain "
         f"{res['plain_cap_ms']:.3f}; equal to the plain versions; card {card}")
@@ -944,8 +976,8 @@ def aa_lean_headline(x, lag: int, events, card: str) -> dict:
 
 def aa_timings(x, lag: int, card: str) -> dict:
     """Kernel C at the [A][A] headline: detect mode on float32 and on int16
-    codes, metric mode on float32; CUDA events (one call) and the profiler's
-    device time (the kernel alone)."""
+    codes (its exact path), metric mode on float32; CUDA events (one call)
+    and the profiler's device time (the kernel alone)."""
     x16 = x.to(torch.int16)
     runs = (("c", lambda: AF.aa_metric(x, half_len=lag, threshold=AA_THR)),
             ("c_i16", lambda: AF.aa_metric(x16, half_len=lag, threshold=AA_THR)),
@@ -956,6 +988,7 @@ def aa_timings(x, lag: int, card: str) -> dict:
     del x16
     torch.cuda.empty_cache()
     log(f"  kernel C: detect f32 {res['c_ms']:.3f} ms (profiler {res['c_kernel_ms']}), int16 "
+        f"(exact path) "
         f"{res['c_i16_ms']:.3f} ({res['c_i16_kernel_ms']}), metric mode "
         f"{res['metric_mode_ms']:.3f} ({res['metric_mode_kernel_ms']}); card {card}")
     return res
@@ -3332,9 +3365,18 @@ A_KERNELS = {"int16 exact": "minn_rtl_metric_kernelIsLi4ELb1E",
              "float32": "minn_rtl_metric_kernelIfLi4ELb0E"}
 
 
-def a_sass_mix(lib) -> dict:
-    """`sass_mix` of each of kernel A's instantiations in `A_KERNELS`."""
-    return {kind: sass_mix(lib, name) for kind, name in A_KERNELS.items()}
+#: kernel C's instantiations at up to two branches: the exact int16 path,
+#: the float path on int16 (with a history, or more than two branches) and
+#: on float32
+C_KERNELS = {"int16 exact": "aa_metric_exact_kernel",
+             "int16 float path": "aa_metric_kernelIsLi4E",
+             "float32": "aa_metric_kernelIfLi4E"}
+
+
+def sass_mixes(lib, kernels: dict) -> dict:
+    """`sass_mix` of each instantiation in ``kernels`` (`A_KERNELS`,
+    `C_KERNELS`)."""
+    return {kind: sass_mix(lib, name) for kind, name in kernels.items()}
 
 
 def main() -> int:
@@ -3360,15 +3402,21 @@ def main() -> int:
             spills.append(line.strip())
     if spills:
         raise AssertionError(f"a kernel spills registers: {spills}")
+    missing = [name for name in (*A_KERNELS.values(), *C_KERNELS.values())
+               if name not in info.log]
+    if info.log and missing:
+        raise AssertionError(f"ptxas reported no registers for {missing}")
     e_sass = sass_mix(info.path, "mf_ols_kernel")
     log(f"  kernel E's SASS instructions (a thread, a block): {e_sass}")
-    a_sass = a_sass_mix(info.path)
+    a_sass = sass_mixes(info.path, A_KERNELS)
     log(f"  kernel A's SASS instructions (static, a thread): {a_sass}")
+    c_sass = sass_mixes(info.path, C_KERNELS)
+    log(f"  kernel C's SASS instructions (static, a thread): {c_sass}")
     if any(launch_counts().values()):
         raise AssertionError(f"launch counters do not start at 0: {launch_counts()}")
     if TIMING:
         log(f"== timing the kernels of {TREE}")
-        out = {"tree": TREE, "e_sass": e_sass, "a_sass": a_sass,
+        out = {"tree": TREE, "e_sass": e_sass, "a_sass": a_sass, "c_sass": c_sass,
                "headline": phase_headline(dev, card),
                "long": phase_long(dev, card),
                "aa_headline": timing_aa(dev, card), "zc_headline": timing_zc(dev, card),
@@ -3446,7 +3494,12 @@ def main() -> int:
          aa_launches["aa_metric"], aa_k["max_err"], aa_head["c_ms"], aa_head["plain_c_ms"],
          c_work(B, AA_HEADLINE["n"], 4, 4, 17), None),
         ("aa_metric[gate_input]", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
-         aa_head["lean"]["gate_input_launches"], aa_head["lean"]["c_err"],
+         aa_head["lean"]["float_launches"], aa_head["lean"]["c_float_err"],
+         aa_head["lean"]["c_float_ms"], aa_head["lean"]["plain_c_ms"],
+         c_work(B, AA_HEADLINE["n"], 4, 2, 5), None),
+        ("aa_metric[gate_input exact_i16]", "aa_metric.cu",
+         "ofdm_sync_tpu/kernels/pallas_aa.py:221",
+         aa_head["lean"]["exact_launches"], aa_head["lean"]["c_err"],
          aa_head["lean"]["c_ms"], aa_head["lean"]["plain_c_ms"],
          c_work(B, AA_HEADLINE["n"], 4, 2, 5), None),
         ("aa_peak_capture", "aa_metric.cu", "ofdm_sync_tpu/kernels/pallas_aa.py:221",
@@ -3492,8 +3545,11 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=src + source, replaces=replaces,
                             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library))
+        if name == "aa_metric[gate_input exact_i16]":
+            kernels[-1]["failed_tiles"] = aa_head["lean"]["failed_tiles"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"e_sass": e_sass, "a_sass": a_sass, "headline": head, "long": long,
+    print(json.dumps({"e_sass": e_sass, "a_sass": a_sass, "c_sass": c_sass, "headline": head,
+                      "long": long,
                       "aa_headline": aa_head,
                       "aa_chain_ms": aa_chain["chain_ms"],
                       "aa_grid": {k: v for k, v in aa_grid.items() if k != "counts"},

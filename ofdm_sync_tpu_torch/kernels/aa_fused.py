@@ -7,12 +7,17 @@ and on int16 codes a third:
 
 * kernel C, `aa_metric` (`csrc/aa_metric.cu`): the lag-L correlation P and
   window power R, branch-combined.  Each CTA walks a span of consecutive
-  tiles of one stream in order, keeping the last 2L + 1024 samples of every
-  plane in a shared ring and the three window sums as running float64
-  values; a span primes once from its 2L-sample left halo (the metric has
-  no IIR), or at the stream's head from the history.  Metric mode returns
-  (P_re, P_im, R); detect mode returns P_re, P_im, M, the tracked |P|^2 and
-  the gate input ``above``, or the last two alone (see below);
+  tiles of one stream in order, keeping the last 2L samples and more of
+  every plane in a shared ring and the three window sums as running values;
+  a span primes once from its 2L-sample left halo (the metric has no IIR),
+  or at the stream's head from the history.  Two paths, picked from the
+  input (`exact_route`): int16 codes of up to two branches without a
+  history take the exact integer path (int32 increments, int64 window sums,
+  mode ``exact_i16``); float32 input and every history the float path
+  (float64 window sums).  Both round the same exact sums once to float32,
+  so their outputs are the same bits.  Metric mode returns (P_re, P_im, R);
+  detect mode returns P_re, P_im, M, the tracked |P|^2 and the gate input
+  ``above``, or the last two alone (see below);
 * kernel B, `gate_events` (`csrc/gate_events.cu`), shared with the
   Minn-RTL detector: the event table, in its capture mode plus (P_re,
   P_im, M) read at each slot's peak;
@@ -22,10 +27,11 @@ and on int16 codes a third:
 
 `aa_detect_fused` chooses its route from the input (`gate_input_route`).
 On int16 codes without a history every window sum is an exact integer, so
-kernel C writes only B's gate input (track and above, 5 B a sample instead
-of 17), B runs in its plain mode, and the peak capture forms P and M at the
-peaks with the same bits as kernel C's.  Everything else (float32 input, a
-history, a CPU tensor) runs C in full detect mode and B with capture.
+kernel C (on its exact path where `exact_route` allows) writes only B's
+gate input (track and above, 5 B a sample instead of 17), B runs in its
+plain mode, and the peak capture forms P and M at the peaks with the same
+bits as kernel C's.  Everything else (float32 input, a history, a CPU
+tensor) runs C's float path in full detect mode and B with capture.
 
 Both routes take the carried state of a stream's chunk
 (`pallas_aa.py:_aa_kernel` with base_index / stream_len_global / shard_init
@@ -56,6 +62,7 @@ import torch
 from ofdm_sync_tpu_torch.device import check_kernel_device
 from ofdm_sync_tpu_torch.kernels import build
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import (
+    _SMEM_LIMIT,
     _check_input,
     _count,
     _gate_events,
@@ -85,6 +92,10 @@ _DETECT_SPAN = SPAN_PREFIX + "aa_detect_fused"
 #: exactly (each |sum| and each difference of two below C/2 x 2 x 2 x
 #: 2^30 x lag <= 2^53)
 _EXACT_C_LAG = 2**21
+#: samples per tile of kernel C's exact int16 path (128 threads x 8); its
+#: ring holds round8(2 lag) + 3 tiles of codes a plane, beside a tile of
+#: float32 store staging
+_C_EXACT_TILE = 1024
 
 
 class AAMetricRows(NamedTuple):
@@ -104,24 +115,46 @@ def gate_input_route(x: torch.Tensor, hist_init: torch.Tensor | None, half_len: 
     """Whether `aa_detect_fused` may take its lean route on the card: x is
     int16 codes without a history, so kernel C's window sums are exact
     integers (within `_EXACT_C_LAG`) and P and M can be formed again at the
-    peaks with the same bits (`aa_peak_capture`)."""
+    peaks with the same bits (`aa_peak_capture`).  Kernel C itself then
+    runs its exact integer path where `exact_route` allows (up to two
+    branches), its float path beyond."""
     return (x.dtype == torch.int16 and hist_init is None
             and x.shape[0] * half_len <= _EXACT_C_LAG)
 
 
+def exact_route(x: torch.Tensor, hist_init: torch.Tensor | None, half_len: int) -> bool:
+    """Whether kernel C takes its exact int16 path for x: int16 codes of up
+    to two branches without a history, the ring of codes within a CTA's
+    shared memory (lag up to 12,672 at two branches, so C x lag stays
+    within `_EXACT_C_LAG` and the float path's sums are exact too).  Any
+    other input takes the float path, with the same bits where both may
+    run."""
+    C = x.shape[0]
+    ring = -(-2 * half_len // 8) * 8 + 3 * _C_EXACT_TILE
+    return (x.dtype == torch.int16 and hist_init is None and C <= 4
+            and 2 * C * ring + 4 * _C_EXACT_TILE <= _SMEM_LIMIT)
+
+
 def aa_metric(x: torch.Tensor, *, half_len: int, threshold: float | None = None,
-              base_index=0, hist_init: torch.Tensor | None = None) -> AAMetricRows:
+              base_index=0, hist_init: torch.Tensor | None = None,
+              failed_tiles: torch.Tensor | None = None) -> AAMetricRows:
     """Kernel C.  x: (C, batch, L) float32 or int16.  ``threshold`` None:
     metric mode (P_re, P_im, R); a float: detect mode (P_re, P_im, M, track,
     above) with ``above = n >= L & M >= float32(threshold)``.  Primed:
     ``base_index`` (a host integer) is the global index of sample 0 (valid
     from ``base + n >= L``), ``hist_init`` (C, batch, <=H) float32 the
-    samples before it, right-aligned."""
+    samples before it, right-aligned.  On the card, int16 codes take the
+    exact path where `exact_route` allows (mode ``exact_i16``);
+    ``failed_tiles``, a one-element int32 tensor on x's device, gains the
+    tiles that path walked on its wide route (a code out of [-2048, 2048)
+    within a tile's reach); the float path and the plain version leave it as
+    it is."""
     return _aa_metric(x, half_len=half_len, threshold=threshold, base_index=base_index,
-                      hist_init=hist_init)
+                      hist_init=hist_init, failed_tiles=failed_tiles)
 
 
-def _aa_metric(x, *, half_len, threshold, base_index, hist_init, gate_input=False):
+def _aa_metric(x, *, half_len, threshold, base_index, hist_init, gate_input=False,
+               failed_tiles=None):
     """`aa_metric`; with ``gate_input`` (detect mode) only track and above
     are written (mode ``gate_input``)."""
     with span(_C_SPANS.call):
@@ -149,6 +182,11 @@ def _aa_metric(x, *, half_len, threshold, base_index, hist_init, gate_input=Fals
             if not x.is_contiguous():
                 raise ValueError("kernel C needs a contiguous input")
             check_index_range(base, L)
+            if failed_tiles is not None and (failed_tiles.dtype != torch.int32
+                                             or failed_tiles.device != x.device
+                                             or not failed_tiles.is_contiguous()):
+                raise ValueError("failed_tiles must be a contiguous int32 tensor on x's device")
+            exact = exact_route(x, hist, lag)
             new = lambda dt: torch.empty((batch, L), dtype=dt, device=x.device)  # noqa: E731
             with span(_C_SPANS.alloc):
                 p_re, p_im = ((None, None) if gate_input
@@ -160,14 +198,16 @@ def _aa_metric(x, *, half_len, threshold, base_index, hist_init, gate_input=Fals
         with span(_C_SPANS.launch):
             if batch and L:
                 err = build.library().aa_metric(
-                    int(x.dtype == torch.int16), x.data_ptr(), _ptr(hist), C, batch, L, lag,
-                    0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
+                    int(x.dtype == torch.int16), int(exact), x.data_ptr(), _ptr(hist), C,
+                    batch, L, lag, 0 if hist is None else hist.shape[-1], base, 1e-6 * lag,
                     threshold if detect else 0.0, _ptr(p_re), _ptr(p_im), _ptr(r),
-                    _ptr(track), _ptr(m), _ptr(above), _stream(x))
+                    _ptr(track), _ptr(m), _ptr(above),
+                    _ptr(failed_tiles), _stream(x))
                 build.check(err, "aa_metric")
                 _count(aa_metric, *(("detect",) if detect else ()),
                        *(("gate_input",) if gate_input else ()),
-                       *(("primed",) if hist is not None or base != 0 else ()))
+                       *(("primed",) if hist is not None or base != 0 else ()),
+                       *(("exact_i16",) if exact else ()))
         return AAMetricRows(p_re, p_im, r, m, track,
                             None if above is None else above.view(torch.bool))
 

@@ -39,7 +39,8 @@ SIGNATURES = {
     "gate_events_f32": [_P, _P, _I, _LL, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                         _I, _LL, _P, _P, _P, _I, _P],
-    "aa_metric": [_I, _P, _P, _I, _I, _LL, _I, _I, _LL, _F, _F, _P, _P, _P, _P, _P, _P, _P],
+    "aa_metric": [_I, _I, _P, _P, _I, _I, _LL, _I, _I, _LL, _F, _F, _P, _P, _P, _P, _P, _P, _P,
+                  _P],
     "aa_peak_capture": [_P, _P, _I, _I, _LL, _I, _I, _LL, _F, _P, _P],
     "zc_cfar_mag_f32": [_P, _P, _I, _LL, _I, _I, _LL, _F, _F, _F, _P, _P],
     "zc_cfar_iq": [_I, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _LL, _I, _F, _F, _F, _F,

@@ -127,7 +127,7 @@ namespace {
 namespace walk = ofdm::walk;
 
 // the exact path: consecutive samples per thread, threads (warps) per CTA
-constexpr int kXItems = 8;
+constexpr int kXItems = walk::kCodes;
 constexpr int kXThreads = 128;
 constexpr int kXWarps = kXThreads / 32;
 constexpr int kXTile = kXThreads * kXItems;
@@ -235,40 +235,10 @@ __device__ __forceinline__ Span exact_span(const Args& a) {
   return s;
 }
 
-// kXItems int16 codes in sample order, two to a 32-bit word
-struct Codes {
-  uint32_t w[kXItems / 2];
-  __device__ __forceinline__ int at(int k) const {  // code k, sign-extended
-    return (k & 1) ? (int)w[k >> 1] >> 16 : (int)(int16_t)(w[k >> 1] & 0xffffu);
-  }
-  __device__ __forceinline__ void set(uint4 v) {
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  }
-  __device__ __forceinline__ uint4 vec() const { return make_uint4(w[0], w[1], w[2], w[3]); }
-};
-
-__device__ __forceinline__ uint32_t pair16(int16_t lo, int16_t hi) {
-  return (uint32_t)(uint16_t)lo | (uint32_t)(uint16_t)hi << 16;
-}
-
-// codes i .. i + 7 of a ring (wrapping at len); aligned: one 16-byte load
-__device__ __forceinline__ Codes ring_codes(const int16_t* r, int i, int len, bool aligned) {
-  Codes v;
-  if (aligned) {
-    v.set(*reinterpret_cast<const uint4*>(r + i));
-    return v;
-  }
-#pragma unroll
-  for (int k = 0; k < kXItems; k += 2) {
-    const int j = i + k < len ? i + k : i + k - len;
-    const int j1 = i + k + 1 < len ? i + k + 1 : i + k + 1 - len;
-    v.w[k >> 1] = pair16(r[j], r[j1]);
-  }
-  return v;
-}
+using walk::Codes;
+using walk::pair16;
+using walk::put_row;
+using walk::ring_codes;
 
 // entries i .. i + 7 of an int32 ring (wrapping at len, a multiple of 8);
 // aligned (i % 8 == 0): two 16-byte loads
@@ -301,33 +271,6 @@ __device__ __forceinline__ longlong2 add_ll2(longlong2 x, longlong2 y) {
 
 __device__ __forceinline__ longlong2 shfl_up_ll2(longlong2 v, int d) {
   return make_longlong2(__shfl_up_sync(ofdm::kFull, v.x, d), __shfl_up_sync(ofdm::kFull, v.y, d));
-}
-
-// One output row's values of this thread's samples n0 .. n0 + 7.  Staged
-// (wst, the warp's buffer of 256 floats): through shared memory, so that each
-// of the warp's two stores writes 512 consecutive bytes; the warp's 256
-// samples (from wbase) must then all be outputs of a row with L % 4 == 0.
-// Else 16-byte stores where vout, single ones where out.
-__device__ __forceinline__ void put_row(float* dst, const float (&v)[kXItems], float* wst,
-                                       int wbase, int n0, bool vout, bool out, int s1) {
-  const int lane = threadIdx.x & 31;
-  if (wst) {
-    *reinterpret_cast<float4*>(wst + kXItems * lane) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(wst + kXItems * lane + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    __syncwarp();
-    const float4 q0 = *reinterpret_cast<const float4*>(wst + 4 * lane);
-    const float4 q1 = *reinterpret_cast<const float4*>(wst + 128 + 4 * lane);
-    *reinterpret_cast<float4*>(dst + wbase + 4 * lane) = q0;
-    *reinterpret_cast<float4*>(dst + wbase + 128 + 4 * lane) = q1;
-    __syncwarp();
-  } else if (vout) {
-    *reinterpret_cast<float4*>(dst + n0) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst + n0 + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  } else if (out) {
-#pragma unroll
-    for (int k = 0; k < kXItems; ++k)
-      if (n0 + k < s1) dst[n0 + k] = v[k];
-  }
 }
 
 // Whether a tile's samples are all outputs of the smoothing recurrence with

@@ -11,7 +11,10 @@
 // 16-byte stores) and reads the delayed ones (16-byte loads where the delay
 // keeps them aligned).  Window sums are float64 running values carried from
 // tile to tile; the tile's increments are scanned with warp shuffles and one
-// exchange of warp totals through shared memory.
+// exchange of warp totals through shared memory.  The exact int16 paths of
+// kernels A and C (8 samples a thread, integer window sums) keep their codes
+// in int16 rings, read as groups of 8 (Codes, ring_codes), and write their
+// float rows through a warp's staging buffer (put_row).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,6 +101,12 @@ __device__ __forceinline__ void cp_async4(T* dst, const T* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// 8 int16 codes (16 bytes) from a 16-byte aligned global address
+__device__ __forceinline__ void cp_async16(int16_t* dst, const int16_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -142,22 +151,90 @@ __device__ __forceinline__ int ring_next(int i, int len, int step = kTile) {
   return i >= len ? i - len : i;
 }
 
+// ---- int16 codes in groups of 8: the exact int16 paths of kernels A and C --
+
+constexpr int kCodes = 8;
+
+// kCodes int16 codes in sample order, two to a 32-bit word
+struct Codes {
+  uint32_t w[kCodes / 2];
+  __device__ __forceinline__ int at(int k) const {  // code k, sign-extended
+    return (k & 1) ? (int)w[k >> 1] >> 16 : (int)(int16_t)(w[k >> 1] & 0xffffu);
+  }
+  __device__ __forceinline__ void set(uint4 v) {
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+  __device__ __forceinline__ uint4 vec() const { return make_uint4(w[0], w[1], w[2], w[3]); }
+};
+
+__device__ __forceinline__ uint32_t pair16(int16_t lo, int16_t hi) {
+  return (uint32_t)(uint16_t)lo | (uint32_t)(uint16_t)hi << 16;
+}
+
+// codes i .. i + 7 of a ring (wrapping at len); aligned: one 16-byte load
+__device__ __forceinline__ Codes ring_codes(const int16_t* r, int i, int len, bool aligned) {
+  Codes v;
+  if (aligned) {
+    v.set(*reinterpret_cast<const uint4*>(r + i));
+    return v;
+  }
+#pragma unroll
+  for (int k = 0; k < kCodes; k += 2) {
+    const int j = i + k < len ? i + k : i + k - len;
+    const int j1 = i + k + 1 < len ? i + k + 1 : i + k + 1 - len;
+    v.w[k >> 1] = pair16(r[j], r[j1]);
+  }
+  return v;
+}
+
+// One output row's values of this thread's samples n0 .. n0 + 7 (the exact
+// int16 paths of kernels A and C: kCodes samples a thread).  Staged
+// (wst, the warp's buffer of 256 floats): through shared memory, so that each
+// of the warp's two stores writes 512 consecutive bytes; the warp's 256
+// samples (from wbase) must then all be outputs of a row with L % 4 == 0.
+// Else 16-byte stores where vout, single ones where out.
+__device__ __forceinline__ void put_row(float* dst, const float (&v)[kCodes], float* wst,
+                                       int wbase, int n0, bool vout, bool out, int s1) {
+  const int lane = threadIdx.x & 31;
+  if (wst) {
+    *reinterpret_cast<float4*>(wst + kCodes * lane) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(wst + kCodes * lane + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    __syncwarp();
+    const float4 q0 = *reinterpret_cast<const float4*>(wst + 4 * lane);
+    const float4 q1 = *reinterpret_cast<const float4*>(wst + 128 + 4 * lane);
+    *reinterpret_cast<float4*>(dst + wbase + 4 * lane) = q0;
+    *reinterpret_cast<float4*>(dst + wbase + 128 + 4 * lane) = q1;
+    __syncwarp();
+  } else if (vout) {
+    *reinterpret_cast<float4*>(dst + n0) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + n0 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else if (out) {
+#pragma unroll
+    for (int k = 0; k < kCodes; ++k)
+      if (n0 + k < s1) dst[n0 + k] = v[k];
+  }
+}
+
 // inclusive scan of N sums over the warp, in place; exc gets the exclusive
-// prefix (the inclusive one shuffled one lane up, zero at lane 0)
-template <int N>
-__device__ __forceinline__ void warp_scan(double (&v)[N], double (&exc)[N], int lane) {
+// prefix (the inclusive one shuffled one lane up, zero at lane 0); V is
+// double (the float paths) or long long (kernel C's exact path)
+template <int N, typename V>
+__device__ __forceinline__ void warp_scan(V (&v)[N], V (&exc)[N], int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const double o = __shfl_up_sync(kFull, v[k], d);
+      const V o = __shfl_up_sync(kFull, v[k], d);
       if (lane >= d) v[k] = o + v[k];
     }
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     exc[k] = __shfl_up_sync(kFull, v[k], 1);
-    if (lane == 0) exc[k] = 0.0;
+    if (lane == 0) exc[k] = V(0);
   }
 }
 

@@ -13,7 +13,9 @@ a launch that reads channels at each slot's peak; C: ``detect`` for its
 detect mode (the tracked |P|^2 and the gate input above, with P and M),
 ``gate_input`` for a detect launch that writes only the tracked |P|^2 and
 above (int16 codes without a history), whose P and M the peak capture
-(`aa_peak_capture`) forms at a table's peaks instead; D's IQ mode with a
+(`aa_peak_capture`) forms at a table's peaks instead, and ``exact_i16``
+for int16 codes of up to two branches without a history, which take its
+exact integer path (`aa_fused.exact_route`); D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 ``int16`` for a chunk of int16 codes).  A run shows that it went through
 the kernels by resetting the counts, driving its path and reading them.

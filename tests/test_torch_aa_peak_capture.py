@@ -221,8 +221,9 @@ def cuda():
 
 def _current_route(x, L, *, base=0, ginit=None, emit_state=False, **gate):
     """The route before the peak capture: kernel C in detect mode (P_re,
-    P_im, M written) and kernel B capturing them at the peaks."""
-    o = AA.aa_metric(x, half_len=L, threshold=THR, base_index=base)
+    P_im, M written) on its float path (the codes as float32) and kernel B
+    capturing them at the peaks."""
+    o = AA.aa_metric(x.float(), half_len=L, threshold=THR, base_index=base)
     return F.gate_events_capture(o.above, o.track, (o.P_re, o.P_im, o.M), valid_from=0,
                                  base_index=base, gate_init=ginit, emit_state=emit_state,
                                  **gate)

@@ -2,10 +2,10 @@
 `test_torch_spans.py`: ``ofdm_sync.aa_detect_fused`` is recorded once a
 call under torch.profiler with kernel C's and kernel B's wrapper spans
 nested in it; the CPU path counts no launch; on the card one call on int16
-codes counts C's ``detect`` and ``gate_input`` modes, B in its plain mode
-and one launch of the peak capture, and one call on float32 counts
-C's ``detect`` mode and B's ``capture`` mode.  This file imports no JAX, so
-on a card it runs as
+codes counts C's ``detect``, ``gate_input`` and ``exact_i16`` modes, B in
+its plain mode and one launch of the peak capture, and one call on float32
+counts C's ``detect`` mode and B's ``capture`` mode.  This file imports no
+JAX, so on a card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_aa_spans.py
 """
@@ -77,7 +77,8 @@ def test_cpu_path_counts_no_launch():
 @pytest.mark.gpu
 def test_cuda_detect_counts_its_modes():
     """One call on the card.  On int16 codes (no history): kernel C once on
-    the gate input alone (modes ``detect`` and ``gate_input``), B once in
+    the gate input alone, on its exact integer path (modes ``detect``,
+    ``gate_input`` and ``exact_i16``), B once in
     its plain mode, then the peak capture once, nothing primed, with the
     capture's spans inside the detector's.  On float32: C
     once in detect mode, B once in capture mode.  The Minn detector's B
@@ -92,7 +93,8 @@ def test_cuda_detect_counts_its_modes():
     torch.cuda.synchronize()
     counts, modes = launch_counts(), mode_launch_counts()
     assert counts["aa_metric"] == counts["gate_events"] == counts["aa_peak_capture"] == 1
-    assert modes == {"aa_metric/detect": 1, "aa_metric/gate_input": 1}
+    assert modes == {"aa_metric/detect": 1, "aa_metric/gate_input": 1,
+                     "aa_metric/exact_i16": 1}
     assert bool(table.valid.any())
     spans = _spans(lambda: _detect(dev, batch=8, n=16384))
     cap = [e for e in spans if e.name == profiling.wrapper_spans("aa_peak_capture").call]
