@@ -9,7 +9,11 @@ checkout, then, for each ported path:
 
 * Minn-RTL: checks kernels A and B against their plain PyTorch versions on
   the card, drives the flagship receive chain (`run_fused_rx_minn_rtl`) on
-  the card and on the CPU, and runs the fused detector at the headline size
+  the card and on the CPU, runs the batched receive
+  (`receive_minn_rtl_frames`) on a small batch on the card against its CPU
+  run of the same codes and table, and again under
+  `torch.cuda.set_sync_debug_mode("error")` (phase 4b: a host
+  synchronisation inside the call fails it), and runs the fused detector at the headline size
   (512 streams x 262144 samples x 2 branches, Q = 512) in float32 and
   int16, timed against the plain version, and on one long stream (1 x 2^24
   x 2 branches), checked against the plain version and timed;
@@ -194,6 +198,8 @@ from ofdm_sync_tpu_torch.pipelines import aa  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.aa import run_grid_test_fused  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.common import build_setup  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import (  # noqa: E402
+    RxSlots,
+    receive_minn_rtl_frames,
     run_fused_rx,
     run_fused_rx_minn_rtl,
 )
@@ -378,6 +384,98 @@ def phase_slice(dev) -> dict:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
     log(f"  launches during the chain: {counts}")
     return counts
+
+
+#: the batched receive's small batch: streams, samples, frames a stream
+RX_BATCH = dict(batch=16, L=1 << 16, frames=4)
+#: card against CPU: CFO (Hz), EVM (relative), equalized bins (over max(1, |eq|))
+RX_TOL = dict(cfo_hz=1e-2, evm=1e-4, eq=1e-4)
+
+
+def rx_frames_stimulus(batch: int, L: int, frames: int, seed: int = 0):
+    """(int16 codes (4, batch, L), pilot and data values (complex64)): a
+    Minn-RTL frame [5Q preamble | pilot | data] at a seeded position in
+    each of ``frames`` segments of every stream, 2 branches (gains 1.0 and
+    0.8, a random phase each), a CFO per stream within +-1 kHz, noise of 32
+    codes, 12-bit codes."""
+    rng = np.random.default_rng(seed)
+    pre = WV.build_minn_rtl_preamble("qpsk_freq", rng, Q=512)
+    pilot, pilot_used = WV.build_random_qpsk_symbol(rng)
+    data, data_used = WV.build_random_qpsk_symbol(rng)
+    frame = np.concatenate([pre, pilot, data])
+    seg = L // frames
+    x = 32.0 * rng.standard_normal((2, batch, L)) + 32j * rng.standard_normal((2, batch, L))
+    n = np.arange(L)
+    for b in range(batch):
+        cfo, amp = rng.uniform(-1000.0, 1000.0), 32.0 * 10 ** (rng.uniform(0.0, 20.0) / 20)
+        tone = np.exp(2j * np.pi * cfo / SYS_30M72.sample_rate_hz * n)
+        for f in range(frames):
+            at = f * seg + int(rng.integers(0, seg - frame.size))
+            for br, gain in enumerate((1.0, 0.8)):
+                rot = amp * gain * np.exp(2j * np.pi * rng.uniform())
+                x[br, b, at: at + frame.size] += rot * frame * tone[at: at + frame.size]
+    planes = np.stack([x[0].real, x[0].imag, x[1].real, x[1].imag])
+    codes = torch.from_numpy(np.clip(np.round(planes), -2047, 2047).astype(np.int16))
+    used = lambda v: torch.as_tensor(v).to(torch.complex64)  # noqa: E731
+    return codes, used(pilot_used), used(data_used)
+
+
+def rx_gaps(out: RxSlots, ref: RxSlots) -> dict:
+    """The largest CFO (Hz), relative EVM and equalized-bin differences at
+    the valid slots; starts, valid and the empty slots' zeros exactly."""
+    if not (torch.equal(out.valid, ref.valid) and torch.equal(out.starts, ref.starts)):
+        raise AssertionError("the batched receive's slots differ from the CPU run's")
+    v = ref.valid
+    for f in RxSlots._fields:
+        if bool(getattr(out, f)[~v].ne(0).any()):
+            raise AssertionError(f"an empty slot's {f} is not zero")
+    return {"cfo_hz": float((out.cfo_hz - ref.cfo_hz)[v].abs().max()),
+            "evm": float(((out.evm_rms - ref.evm_rms).abs() / ref.evm_rms)[v].max()),
+            "eq": float(((out.eq - ref.eq).abs() / ref.eq.abs().clamp_min(1.0))[v].max())}
+
+
+def phase_receive(dev) -> dict:
+    """The batched receive (`receive_minn_rtl_frames`) on the card against
+    its CPU run on the same codes and table; then again under
+    `torch.cuda.set_sync_debug_mode("error")`, so a host synchronisation
+    inside the call fails the phase; its counters."""
+    log("== phase 4b: the batched receive, card vs CPU, no host sync")
+    x, pilot, data = rx_frames_stimulus(**RX_BATCH)
+    kw = dict(max_frames=8)
+    det = dict(quarter_len=512, **KW, hysteresis=HYST, max_events=8, tie="last",
+               emit_unclosed=False)
+    reset_launch_counts()
+    xg = x.to(dev)
+    table = F.minn_rtl_detect_fused(xg, **det)
+    pg, dg = pilot.to(dev), data.to(dev)
+    out = receive_minn_rtl_frames(xg, table, pilot_used=pg, data_used=dg, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if min(counts["minn_rtl_metric"], counts["gate_events"]) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    calls, slots = receive_minn_rtl_frames.calls, receive_minn_rtl_frames.slots
+    if (calls, slots) != (1, RX_BATCH["batch"] * kw["max_frames"]):
+        raise AssertionError(f"receive counters {calls} calls, {slots} slots")
+    host_table = table._replace(**{f: getattr(table, f).cpu() for f in table._fields})
+    cpu = receive_minn_rtl_frames(x, host_table, pilot_used=pilot, data_used=data, **kw)
+    valid = int(cpu.valid.sum())
+    if valid < RX_BATCH["batch"] * RX_BATCH["frames"] - 2:
+        raise AssertionError(f"only {valid} frames found")
+    gaps = rx_gaps(RxSlots(*(t.cpu() for t in out)), cpu)
+    for k, tol in RX_TOL.items():
+        if not gaps[k] <= tol:
+            raise AssertionError(f"card vs CPU: {k} gap {gaps[k]} over {tol}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = receive_minn_rtl_frames(xg, table, pilot_used=pg, data_used=dg, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if any(not torch.equal(a, b) for a, b in zip(again, out)):
+        raise AssertionError("the call under sync debug mode differs from the first")
+    log(f"  {valid} frames: card == cpu within {RX_TOL} ({gaps}); no host sync inside the "
+        f"call under set_sync_debug_mode('error')")
+    return {"frames": valid, "gaps": gaps, "calls": receive_minn_rtl_frames.calls}
 
 
 def phase_headline(dev, card: str) -> dict:
@@ -3428,6 +3526,7 @@ def main() -> int:
 
     k = phase_kernels(dev)
     counts = phase_slice(dev)
+    receive = phase_receive(dev)
     head = phase_headline(dev, card)
     long = phase_long(dev, card)
     aa_k = phase_aa_kernels(dev)
@@ -3550,6 +3649,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"e_sass": e_sass, "a_sass": a_sass, "c_sass": c_sass, "headline": head,
                       "long": long,
+                      "receive": receive,
                       "aa_headline": aa_head,
                       "aa_chain_ms": aa_chain["chain_ms"],
                       "aa_grid": {k: v for k, v in aa_grid.items() if k != "counts"},

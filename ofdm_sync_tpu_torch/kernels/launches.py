@@ -21,6 +21,11 @@ halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
 the kernels by resetting the counts, driving its path and reading them.
 Each wrapper's spans carry its name too (`utils.profiling.wrapper_spans`),
 so a span, a launch count and a kernel line up.
+
+A plain-PyTorch stage with no kernel of its own may count its calls too
+(`pipelines.fused_rx.receive_minn_rtl_frames`: ``.calls`` and ``.slots``);
+its module appends the reset of those counters to `COUNTER_RESETS`, and
+`reset_launch_counts` runs them with the launch counts.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from ofdm_sync_tpu_torch.kernels.zc_fused import zc_metric
 #: one wrapper per kernel: A, B, C, D, E, F and C's peak capture
 KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols,
                    minn_rtl_step, aa_peak_capture)
+#: resets of the call counters of plain-PyTorch stages, appended by their modules
+COUNTER_RESETS: list = []
 
 
 def reset_launch_counts() -> None:
@@ -40,6 +47,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "modes"):
             fn.modes.clear()
+    for reset in COUNTER_RESETS:
+        reset()
 
 
 def launch_counts() -> dict[str, int]:

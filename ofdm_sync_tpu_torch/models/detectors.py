@@ -36,7 +36,7 @@ from ofdm_sync_tpu_torch.kernels.zc_fused import zc_cfar_detect, zc_iq_cfar_dete
 from ofdm_sync_tpu_torch.models.base import DetectionEvent, DetectionResult, events_from_table
 from ofdm_sync_tpu_torch.ops import metrics as M
 from ofdm_sync_tpu_torch.ops.detect import extract_gate_events, gate_open_mask
-from ofdm_sync_tpu_torch.ops.extract import extract_frames
+from ofdm_sync_tpu_torch.ops.extract import extract_frames, extract_frames_planar
 from ofdm_sync_tpu_torch.ops.waveforms import (
     build_pss_symbol,
     centered_subcarrier_indices,
@@ -161,32 +161,44 @@ class MinnRTLDetector(nn.Module):
                   for e in events_from_table(table, n, gate_end_mode="close_excl")]
         return state, DetectionResult(events=events, gate_mask=gmask.cpu().numpy())
 
+    def detect_fused_table(self, rx: torch.Tensor):
+        """Fused detection (kernels A + B on a card, their plain versions on
+        the CPU) of one stream.  rx: complex (branches, L) or (L,).  Returns
+        (planar ``(2*branches, 1, L)`` float32, the detectors' layout, and
+        its event table, fields ``(1, max_events)``), on the input's
+        device."""
+        p = self.params
+        x = planar_rows(rx).unsqueeze(1).contiguous()   # (C, batch=1, L)
+        table = minn_rtl_detect_fused(
+            x, quarter_len=p.quarter_len, smooth_shift=p.smooth_shift,
+            threshold_value=p.threshold_value,
+            threshold_frac_bits=p.threshold_frac_bits, hysteresis=p.hysteresis,
+            max_events=self.max_events, tie="last", emit_unclosed=False)
+        return x, table
+
+    def events(self, table, L: int) -> list:
+        """The events of a one-stream table ``(1, max_events)``."""
+        return [DetectionEvent(detected_start=e["peak_index"] + self.params.timing_offset, **e)
+                for e in events_from_table(table.select(0), L, gate_end_mode="close_excl")]
+
     def detect_fused_frames(self, rx: torch.Tensor, *, frame_len: int, max_frames: int = 4):
         """Flagship receive-chain front half: fused detection, then aligned
         frame re-emission on the stream's device.
 
         rx: complex (branches, L) or (L,).  Windows open at the frame's S0
         start (peak + timing_offset - 6Q: the RTL peak sits at s0 + 6Q) and
-        span ``frame_len`` samples.  Returns ``(result, frames, starts,
-        valid)``: frames planar ``(max_frames, 2*branches, frame_len)``
-        float32, starts int32 and valid bool ``(max_frames,)``, all on the
-        input's device."""
+        span ``frame_len`` samples, read in place from the detector's planar
+        layout (`extract_frames_planar`).  Returns ``(result, frames,
+        starts, valid)``: frames planar ``(max_frames, 2*branches,
+        frame_len)`` float32, starts int32 and valid bool ``(max_frames,)``,
+        all on the input's device."""
         p = self.params
-        planar = planar_rows(rx)           # (C, L)
-        L = planar.shape[-1]
-        table = minn_rtl_detect_fused(
-            planar.unsqueeze(1).contiguous(),  # (C, batch=1, L)
-            quarter_len=p.quarter_len, smooth_shift=p.smooth_shift,
-            threshold_value=p.threshold_value,
-            threshold_frac_bits=p.threshold_frac_bits, hysteresis=p.hysteresis,
-            max_events=self.max_events, tie="last", emit_unclosed=False)
-        table0 = table.select(0)
-        frames, starts, valid = extract_frames(
-            planar, table0, frame_len=frame_len,
+        x, table = self.detect_fused_table(rx)
+        frames, starts, valid = extract_frames_planar(
+            x, table, frame_len=frame_len,
             timing_offset=p.timing_offset - 6 * p.quarter_len, max_frames=max_frames)
-        events = [DetectionEvent(detected_start=e["peak_index"] + p.timing_offset, **e)
-                  for e in events_from_table(table0, L, gate_end_mode="close_excl")]
-        return DetectionResult(events=events, gate_mask=None), frames, starts, valid
+        result = DetectionResult(events=self.events(table, x.shape[-1]), gate_mask=None)
+        return result, frames[0], starts[0], valid[0]
 
 
 class ParkDetector(nn.Module):

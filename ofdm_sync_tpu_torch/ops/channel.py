@@ -202,25 +202,33 @@ def apply_cfo(samples: torch.Tensor, cfo_hz: float, fs_hz: float) -> torch.Tenso
     """Multiply by ``exp(j 2 pi f n / fs)``, the same tone on every branch.
 
     The sample index is split into 12-bit digits whose phase coefficients
-    are reduced mod 2*pi in float64 on the host, so the float32 phase stays
-    accurate (~1e-3 rad) for any stream length; a float32 ``arange`` would
-    collapse past 2^24 samples."""
+    are reduced mod 2*pi in float64, so the float32 phase stays accurate
+    (~1e-3 rad) for any stream length; a float32 ``arange`` would collapse
+    past 2^24 samples."""
     x = samples
     L = x.shape[-1]
     if L == 0:
         return x
+    cfo = torch.as_tensor(cfo_hz, dtype=torch.float64, device=x.device)
+    return x * cfo_tone(torch.arange(L, dtype=torch.int32, device=x.device), L, cfo, fs_hz)
+
+
+def cfo_tone(idx: torch.Tensor, span: int, cfo_hz: torch.Tensor, fs_hz: float) -> torch.Tensor:
+    """``exp(j 2 pi f n / fs)`` at the sample indices ``idx`` (int32 (n,),
+    every index below ``span``), complex64 on idx's device, by `apply_cfo`'s
+    digit split.  ``cfo_hz``: a float tensor of CFOs (shape S, 0-d for one),
+    which gives an (S..., n) tone and reads nothing back to the host: each
+    CFO's digit coefficients are reduced in float64 on its device."""
     two_pi = 2.0 * math.pi
-    a = two_pi * float(cfo_hz) / float(fs_hz)
-    idx = torch.arange(L, dtype=torch.int32, device=x.device)
-    ph = torch.zeros(L, dtype=torch.float32, device=x.device)
-    two_pi_f = torch.tensor(two_pi, dtype=torch.float32, device=x.device)
-    for shift in range(0, max(int(L - 1).bit_length(), 1), 12):
+    dev = idx.device
+    a = (cfo_hz.to(torch.float64) * two_pi / float(fs_hz)).unsqueeze(-1)
+    ph = torch.zeros(tuple(cfo_hz.shape) + (idx.shape[-1],), dtype=torch.float32, device=dev)
+    two_pi_f = torch.full((), two_pi, dtype=torch.float32, device=dev)
+    for shift in range(0, max(int(span - 1).bit_length(), 1), 12):
         digit = ((idx >> shift) & 0xFFF).to(torch.float32)
-        c = torch.tensor(math.fmod(a * float(1 << shift), two_pi), dtype=torch.float32,
-                         device=x.device)
-        ph = ph + torch.remainder(digit * c, two_pi_f)
-    tone = torch.complex(torch.cos(ph), torch.sin(ph))
-    return x * tone
+        coef = torch.fmod(a * float(1 << shift), two_pi).to(torch.float32)
+        ph = ph + torch.remainder(digit * coef, two_pi_f)
+    return torch.complex(torch.cos(ph), torch.sin(ph))
 
 
 def quantize_adc(samples: torch.Tensor, full_scale, bits: int = 12) -> torch.Tensor:

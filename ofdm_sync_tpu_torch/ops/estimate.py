@@ -50,6 +50,16 @@ def estimate_cfo_from_cp(rx: torch.Tensor, start: int, n_fft: int, cp_len: int,
     return cfo_from_P((a * b.conj()).sum(), n_fft, fs_hz)
 
 
+def cfo_from_cp_windows(win: torch.Tensor, n_fft: int, cp_len: int,
+                        fs_hz: float) -> torch.Tensor:
+    """The CP CFO of windows that each start at their CP (reference
+    core.py:179-196): ``win (branches, ..., >= n_fft + cp_len)`` complex ->
+    ``(...)``, the lag-N products of the CP summed over the CP and the
+    branches."""
+    P = (win[..., :cp_len] * win[..., n_fft: n_fft + cp_len].conj()).sum(dim=(0, -1))
+    return cfo_from_P(P, n_fft, fs_hz)
+
+
 def _span_bounds(L: int, cp_start_est: int, n_fft: int, win: int, span: int):
     """[d_lo, d_hi) search bounds; d_hi is exclusive and capped at
     L - (n_fft + win), so the last valid offset is never searched: the
@@ -120,10 +130,11 @@ def equalize(y_used: torch.Tensor, h_est: torch.Tensor, eps: float = 1e-9) -> to
 
 
 def align_complex_gain(x: torch.Tensor, ref: torch.Tensor, eps: float = _EPS):
-    """LS complex gain g minimizing ||g x - ref||^2 (reference core.py:357-362);
-    returns (g * x, g)."""
-    g = torch.vdot(x, ref) / (torch.vdot(x, x) + eps)
-    return x * g, g
+    """LS complex gain g minimizing ||g x - ref||^2 along the last axis
+    (reference core.py:357-362), one g per row of a batch; returns (g * x,
+    g)."""
+    g = torch.linalg.vecdot(x, ref) / (torch.linalg.vecdot(x, x) + eps)
+    return x * g.unsqueeze(-1), g
 
 
 def remove_common_phase(x: torch.Tensor, ref: torch.Tensor | None = None):
@@ -137,9 +148,10 @@ def remove_common_phase(x: torch.Tensor, ref: torch.Tensor | None = None):
 
 
 def evm_rms_db(x: torch.Tensor, ref: torch.Tensor):
-    """(evm_rms, evm_db), normalized to the reference RMS."""
+    """(evm_rms, evm_db) along the last axis, one a row of a batch,
+    normalized to the reference RMS."""
     err = x - ref
-    evm_rms = torch.sqrt((err.abs() ** 2).mean() / (ref.abs() ** 2).mean())
+    evm_rms = torch.sqrt((err.abs() ** 2).mean(dim=-1) / (ref.abs() ** 2).mean(dim=-1))
     return evm_rms, 20 * torch.log10(evm_rms + _EPS)
 
 

@@ -7,8 +7,12 @@
   pilot -> equalize the data symbol -> EVM, per frame.
 * `run_fused_rx_minn_rtl`: the flagship Minn-RTL chain (reference
   minn_rtl.py:884-889: [pad | frame | guard | frame]) -> fused Minn-RTL
-  detection (kernels A + B) -> aligned frame re-emission -> per frame:
-  CP-based CFO on the pilot CP -> LS channel estimate -> equalize -> EVM.
+  detection (kernels A + B) -> `receive_minn_rtl_frames`: aligned frame
+  re-emission -> CP-based CFO on the pilot CP -> LS channel estimate ->
+  equalize -> EVM, every slot of the event table at once.
+* `receive_minn_rtl_frames`: the Minn-RTL receive stages after detection
+  for a whole batch of streams in one call, on the device, with no host
+  synchronisation; a link-level sweep calls it on each batch it detects.
 
 Everything after the host-built stimulus runs on ``device``: the CUDA
 kernels on a card, their plain versions on the CPU.
@@ -20,34 +24,46 @@ Run: ``python -m ofdm_sync_tpu_torch fused_rx [--family aa|minn_rtl]
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ofdm_sync_tpu_torch.device import resolve_device
+from ofdm_sync_tpu_torch.kernels import launches
 from ofdm_sync_tpu_torch.models.detectors import AADetector, MinnRTLDetector
 from ofdm_sync_tpu_torch.ops.channel import (
     apply_cfo,
     apply_channel_multi_antenna,
+    cfo_tone,
     compute_clipping_stats,
     quantize_adc,
 )
+from ofdm_sync_tpu_torch.ops.detect import GateEvents
 from ofdm_sync_tpu_torch.ops.estimate import (
     align_complex_gain,
+    cfo_from_cp_windows,
     equalize,
-    estimate_cfo_from_cp,
     evm_rms_db,
     ls_channel_estimate,
 )
+from ofdm_sync_tpu_torch.ops.extract import frame_slots, slot_windows
 from ofdm_sync_tpu_torch.ops.waveforms import (
     build_aa_preamble,
     build_aa_qpsk_symbol,
     build_minn_rtl_preamble,
     ofdm_fft_used,
 )
-from ofdm_sync_tpu_torch.params import AADetectorParams, MinnRTLParams, SYS_30M72, SYS_AA_10M
+from ofdm_sync_tpu_torch.params import (
+    AADetectorParams,
+    MinnRTLParams,
+    SYS_30M72,
+    SYS_AA_10M,
+    SystemParams,
+)
 from ofdm_sync_tpu_torch.pipelines import common
 from ofdm_sync_tpu_torch.utils import report
+from ofdm_sync_tpu_torch.utils.profiling import SPAN_PREFIX, span
 
 
 SNR_DB = 10.0
@@ -204,6 +220,94 @@ def run_fused_rx(
     )
 
 
+class RxSlots(NamedTuple):
+    """What `receive_minn_rtl_frames` gives each slot of a batch, on the
+    device; every field is zero in a slot that is not valid."""
+
+    starts: torch.Tensor   # (batch, K) int32: the frame's first sample in the stream
+    valid: torch.Tensor    # (batch, K) bool
+    cfo_hz: torch.Tensor   # (batch, K) float32: CP CFO over the pilot's CP
+    evm_rms: torch.Tensor  # (batch, K) float32
+    evm_db: torch.Tensor   # (batch, K) float32
+    gain: torch.Tensor     # (batch, K) complex64: the LS gain alignment
+    eq: torch.Tensor       # (batch, K, num_active) complex64: equalized data, gain-aligned
+
+
+#: the receive's spans: the whole call, then its stages in order
+RECEIVE_SPAN = SPAN_PREFIX + "minn_rtl_receive"
+RECEIVE_STAGES = tuple(f"{RECEIVE_SPAN}.{s}" for s in ("extract", "cfo", "demod"))
+
+
+def receive_minn_rtl_frames(
+    x: torch.Tensor,
+    table: GateEvents,
+    *,
+    sys: SystemParams = SYS_30M72,
+    params: MinnRTLParams = MinnRTLParams(),
+    pilot_used: torch.Tensor,
+    data_used: torch.Tensor,
+    max_frames: int = 4,
+) -> RxSlots:
+    """Demodulate every frame of a detected batch in one call.
+
+    x: the codes the detector read, planar channel-leading ``(2*branches,
+    batch, L)`` int16 or float32; table: its event table, fields ``(batch,
+    E)``; pilot_used / data_used: the known ``(num_active,)`` complex64
+    pilot and data values, on x's device.  The frame of [5Q preamble | pilot
+    | data] (each symbol with its CP) opens at ``peak + timing_offset - 6Q``,
+    clipped into the stream; slot k < min(max_frames, E) follows
+    `run_fused_rx_minn_rtl`'s per-frame stages: the pilot and data symbols
+    read in place from x, the CP CFO over the pilot's CP at local offset
+    5Q summed over the branches, the correction on the frame's local index,
+    the antenna mean, the FFT's used bins, the LS estimate on the pilot,
+    the equalized data symbol aligned by its LS gain, its EVM.  Every slot
+    is computed under its mask, in complex64, with no host synchronisation
+    and no shape that depends on the data.  Counts ``.calls`` and
+    ``.slots`` (batch x K) a call."""
+    Q, n_fft, cp, fs = params.quarter_len, sys.n_fft, sys.cp_len, sys.sample_rate_hz
+    pilot_cp = 5 * Q                       # local offset of the pilot's CP
+    sym_len = n_fft + cp
+    dev = x.device
+    with span(RECEIVE_SPAN):
+        with span(RECEIVE_STAGES[0]):
+            starts, valid = frame_slots(table, x.shape[-1], frame_len=pilot_cp + 2 * sym_len,
+                                        timing_offset=params.timing_offset - 6 * Q,
+                                        max_frames=max_frames)
+            win = slot_windows(x, starts + pilot_cp, 2 * sym_len).to(torch.float32)
+            ants = torch.complex(win[0::2], win[1::2])          # (branches, batch, K, 2(N+CP))
+        with span(RECEIVE_STAGES[1]):
+            cfo = cfo_from_cp_windows(ants, n_fft, cp, fs)      # (batch, K)
+        with span(RECEIVE_STAGES[2]):
+            at = torch.arange(cp, cp + n_fft, dtype=torch.int32, device=dev)
+            at = torch.stack([at, at + sym_len])                # pilot, data: (2, N)
+            tone = cfo_tone((pilot_cp + at).reshape(-1), pilot_cp + 2 * sym_len, -cfo, fs)
+            sym = ants[..., at.long()]                          # (branches, batch, K, 2, N)
+            comb = (sym * tone.unflatten(-1, at.shape)).mean(dim=0)
+            half = sys.num_active // 2                          # the used bins, unshifted
+            used = torch.cat([torch.arange(n_fft - half, n_fft, device=dev),
+                              torch.arange(1, half + 1, device=dev)])
+            bins = torch.fft.fft(comb)[..., used]
+            h_est = ls_channel_estimate(bins[..., 0, :], pilot_used)
+            eq, gain = align_complex_gain(equalize(bins[..., 1, :], h_est), data_used)
+            evm_rms, evm_db = evm_rms_db(eq, data_used)
+            zero = lambda t: torch.where(  # noqa: E731
+                valid.reshape(valid.shape + (1,) * (t.ndim - valid.ndim)), t,
+                torch.zeros((), dtype=t.dtype, device=dev))
+            out = RxSlots(zero(starts).to(torch.int32), valid, zero(cfo), zero(evm_rms),
+                          zero(evm_db), zero(gain), zero(eq))
+    receive_minn_rtl_frames.calls += 1
+    receive_minn_rtl_frames.slots += valid.numel()
+    return out
+
+
+def _reset_receive_counts() -> None:
+    receive_minn_rtl_frames.calls = receive_minn_rtl_frames.slots = 0
+
+
+_reset_receive_counts()
+launches.COUNTER_RESETS.append(_reset_receive_counts)
+
+
 def run_fused_rx_minn_rtl(
     snr_db: float = 0.0,
     channel_name: str | None = None,
@@ -212,13 +316,12 @@ def run_fused_rx_minn_rtl(
     device: torch.device | str | None = None,
 ) -> FusedRxResult:
     """Synthesize two Minn-RTL frames, detect them with the fused detector,
-    re-emit each aligned frame window and demodulate it; prints the same
-    report as the JAX pipeline."""
+    demodulate every detected frame in one `receive_minn_rtl_frames` call
+    on the device; prints the same report as the JAX pipeline."""
     dev = resolve_device(device)
     sys_p = SYS_30M72
     params = MinnRTLParams()
     Q = params.quarter_len
-    fs = sys_p.sample_rate_hz
     rng = np.random.default_rng(seed)
 
     preamble = build_minn_rtl_preamble(params.seq_type, rng, Q=Q, sys=sys_p)
@@ -235,10 +338,13 @@ def run_fused_rx_minn_rtl(
     ]
 
     det = MinnRTLDetector(sys_p, params)
-    result, frames, starts, valid = det.detect_fused_frames(
-        rx, frame_len=frame_len, max_frames=4)
-    starts_h = starts.cpu().numpy()
-    valid_h = valid.cpu().numpy()
+    x, table = det.detect_fused_table(rx)
+    used = lambda v: torch.as_tensor(v, device=dev).to(torch.complex64)  # noqa: E731
+    slots = receive_minn_rtl_frames(x, table, sys=sys_p, params=params,
+                                    pilot_used=used(setup.pilot_used),
+                                    data_used=used(setup.data_used), max_frames=4)
+    host = {f: getattr(slots, f)[0].cpu().numpy() for f in RxSlots._fields if f != "eq"}
+    events = det.events(table, x.shape[-1])
 
     channel_str = channel_name if channel_name else "awgn"
     report.banner(
@@ -249,47 +355,38 @@ def run_fused_rx_minn_rtl(
     print(f"Stream: {rx.shape[1]} samples x {rx.shape[0]} branch(es), "
           f"2 frames sent, frame_len {frame_len}; detector: fused "
           f"Minn-RTL detect ({kind})")
-    if not valid_h.any():
+    if not host["valid"].any():
         print("NO DETECTION -- receiver idle")
         return FusedRxResult(False, -1, float("nan"), float("nan"), float("nan"))
 
-    n_det = int(valid_h.sum())
+    n_det = int(host["valid"].sum())
     print(f"\nDetection (in-kernel event table -> device-side frame "
           f"re-emission, {n_det} frame window(s)):")
 
-    n_fft, cp = sys_p.n_fft, sys_p.cp_len
-    pilot_cp_off = 5 * Q                        # local frame layout
-    pilot_n_off = pilot_cp_off + cp
-    data_n_off = pilot_n_off + n_fft + cp
-    pilot_used = torch.as_tensor(setup.pilot_used, device=dev).to(torch.complex64)
-    data_used = torch.as_tensor(setup.data_used, device=dev).to(torch.complex64)
-
     frame_results: list[FrameResult] = []
     for k in range(n_det):
+        start = int(host["starts"][k])
         tstart = true_starts[k] if k < len(true_starts) else true_starts[-1]
-        timing_err = int(starts_h[k]) - tstart
-        fp = frames[k]  # planar (2*branches, frame_len) float32
-        ants = torch.complex(fp[0::2], fp[1::2])
-        cfo_est = float(estimate_cfo_from_cp(ants, pilot_cp_off, n_fft, cp, fs))
+        timing_err = start - tstart
+        cfo_est = float(host["cfo_hz"][k])
         cfo_err = cfo_est - cfo_hz
-        evm_pct, evm_db, _gain = _demod(fp, cfo_est, (pilot_n_off, data_n_off), sys_p,
-                                        pilot_used, data_used)
+        evm_pct, evm_db = 100.0 * float(host["evm_rms"][k]), float(host["evm_db"][k])
         frame_results.append(FrameResult(timing_err, float(cfo_err), evm_pct, evm_db))
-        print(f"  Frame {k}: start {int(starts_h[k])} (true {tstart}, "
+        print(f"  Frame {k}: start {start} (true {tstart}, "
               f"error {timing_err:+d}), CFO {cfo_est:.2f} Hz "
               f"(error {cfo_err:+.2f}), EVM {evm_pct:.2f}% "
               f"({evm_db:.2f} dB)")
 
-    if result.events:
-        e0 = result.events[0]
+    if events:
+        e0 = events[0]
         print(f"\n  Gate [{e0.gate_start}, {e0.gate_end}), peak metric "
-              f"{e0.peak_value:.0f}, events={len(result.events)}")
+              f"{e0.peak_value:.0f}, events={len(events)}")
     print(report.BANNER)
     first = frame_results[0]
     return FusedRxResult(
         True, first.timing_error, first.cfo_error_hz, first.evm_pct,
         first.evm_db, frames=frame_results,
-        starts=[int(s) for s in starts_h[:n_det]],
+        starts=[int(s) for s in host["starts"][:n_det]],
     )
 
 
