@@ -10,10 +10,15 @@ checkout, then, for each ported path:
 * Minn-RTL: checks kernels A and B against their plain PyTorch versions on
   the card, drives the flagship receive chain (`run_fused_rx_minn_rtl`) on
   the card and on the CPU, runs the batched receive
-  (`receive_minn_rtl_frames`) on a small batch on the card against its CPU
-  run of the same codes and table, and again under
-  `torch.cuda.set_sync_debug_mode("error")` (phase 4b: a host
-  synchronisation inside the call fails it), and runs the fused detector at the headline size
+  (`receive_minn_rtl_frames`: on the card kernels G and H around one FFT)
+  on a small batch against the same call's plain body on the card and
+  against its CPU run of the same codes and table, one launch of each
+  kernel, and again under `torch.cuda.set_sync_debug_mode("error")` (phase
+  4b: a host synchronisation inside the call fails it), holds the kernels
+  to the plain body on the card at the frame cell's batch too (K = E = 16:
+  one launch of each, the same limits) and times the receive, each kernel,
+  the FFT and the host's enqueue of a batch there beside the plain body
+  (phase 4c), and runs the fused detector at the headline size
   (512 streams x 262144 samples x 2 branches, Q = 512) in float32 and
   int16, timed against the plain version, and on one long stream (1 x 2^24
   x 2 branches), checked against the plain version and timed;
@@ -129,14 +134,15 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-#: ``--timing [TREE]``: only the timed phases (5, 13, 15, and the kernel C,
-#: D and E timings of 9 and 12), on the kernels of the checkout TREE (default:
+#: ``--timing [TREE]``: only the timed phases (4c, 5, 13, 15, and the kernel
+#: C, D and E timings of 9 and 12), on the kernels of the checkout TREE (default:
 #: this one), so that two trees are timed by the same script on the same card
 TIMING = "--timing" in sys.argv[1:]
 _AT = sys.argv.index("--timing") + 1 if TIMING else 0
@@ -152,6 +158,16 @@ from ofdm_sync_tpu_torch.kernels import minn_rtl_fused as F  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import streaming as SP  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import streaming_chunked as ST  # noqa: E402
 from ofdm_sync_tpu_torch.kernels import zc_fused as ZF  # noqa: E402
+
+try:  # kernels G and H; a tree timed by ``--timing`` may predate them
+    from ofdm_sync_tpu_torch.kernels import minn_rx as RK  # noqa: E402
+except ImportError:
+    RK = None
+from benchmark import harness as BH  # noqa: E402
+from benchmark import stimulus as BS  # noqa: E402
+from benchmark.preambles import minn_rtl_frame  # noqa: E402
+from benchmark.reference import minn_rtl_rx as RXREF  # noqa: E402
+from benchmark.work.rx_counts import rx_demod_work  # noqa: E402
 from ofdm_sync_tpu_torch.kernels.launches import (  # noqa: E402
     launch_counts,
     mode_launch_counts,
@@ -180,7 +196,7 @@ from ofdm_sync_tpu_torch.ops.extract import extract_frames  # noqa: E402
 from ofdm_sync_tpu_torch.ops.metrics import sc_metric  # noqa: E402
 from ofdm_sync_tpu_torch.ops.waveforms import build_pss_symbol  # noqa: E402
 from ofdm_sync_tpu_torch.ops.windows import cumsum, running_sum_stream  # noqa: E402
-from ofdm_sync_tpu_torch.params import SYS_30M72, SystemParams  # noqa: E402
+from ofdm_sync_tpu_torch.params import SYS_30M72, MinnRTLParams, SystemParams  # noqa: E402
 from ofdm_sync_tpu_torch.parallel import distributed as DI  # noqa: E402
 from ofdm_sync_tpu_torch.parallel import dryrun as DR  # noqa: E402
 from ofdm_sync_tpu_torch.parallel import shard as SH  # noqa: E402
@@ -197,6 +213,7 @@ from ofdm_sync_tpu_torch.pipelines import (  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines import aa  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.aa import run_grid_test_fused  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.common import build_setup  # noqa: E402
+from ofdm_sync_tpu_torch.pipelines import fused_rx as RXP  # noqa: E402
 from ofdm_sync_tpu_torch.pipelines.fused_rx import (  # noqa: E402
     RxSlots,
     receive_minn_rtl_frames,
@@ -390,6 +407,15 @@ def phase_slice(dev) -> dict:
 RX_BATCH = dict(batch=16, L=1 << 16, frames=4)
 #: card against CPU: CFO (Hz), EVM (relative), equalized bins (over max(1, |eq|))
 RX_TOL = dict(cfo_hz=1e-2, evm=1e-4, eq=1e-4)
+#: kernels G and H against the plain body (on the card and on the CPU):
+#: PERF.md section 2's limits of the receive, the equalized bins judged
+#: outside the weak bins of a float64 channel estimate, as the benchmark
+#: judges them (`benchmark.reference.minn_rtl_rx`)
+RX_KERNEL_TOL = dict(cfo_hz=RXREF.LIMITS["cfo_gap_hz"], evm=RXREF.LIMITS["evm_gap"],
+                     eq=RXREF.LIMITS["eq_gap"])
+#: the frame cell's configuration and its batch for phase 4c's timing
+RX_CELL = "minn_rtl_rx.frames"
+RX_SEED = 2**31 + 2424
 
 
 def rx_frames_stimulus(batch: int, L: int, frames: int, seed: int = 0):
@@ -420,26 +446,59 @@ def rx_frames_stimulus(batch: int, L: int, frames: int, seed: int = 0):
     return codes, used(pilot_used), used(data_used)
 
 
-def rx_gaps(out: RxSlots, ref: RxSlots) -> dict:
+def rx_gaps(out: RxSlots, ref: RxSlots, weak=None) -> dict:
     """The largest CFO (Hz), relative EVM and equalized-bin differences at
-    the valid slots; starts, valid and the empty slots' zeros exactly."""
+    the valid slots, the bins where ``weak`` (batch, K, bins) is set left
+    out; starts, valid and the empty slots' zeros exactly."""
     if not (torch.equal(out.valid, ref.valid) and torch.equal(out.starts, ref.starts)):
         raise AssertionError("the batched receive's slots differ from the CPU run's")
     v = ref.valid
     for f in RxSlots._fields:
         if bool(getattr(out, f)[~v].ne(0).any()):
             raise AssertionError(f"an empty slot's {f} is not zero")
+    dq = (out.eq - ref.eq).abs() / ref.eq.abs().clamp_min(1.0)
+    if weak is not None:
+        dq = dq.masked_fill(weak, 0.0)
     return {"cfo_hz": float((out.cfo_hz - ref.cfo_hz)[v].abs().max()),
             "evm": float(((out.evm_rms - ref.evm_rms).abs() / ref.evm_rms)[v].max()),
-            "eq": float(((out.eq - ref.eq).abs() / ref.eq.abs().clamp_min(1.0))[v].max())}
+            "eq": float(dq[v].max())}
+
+
+def rx_config(K: int, sys_p: SystemParams = SYS_30M72, Q: int = 512) -> dict:
+    """The numbers of `benchmark.reference.minn_rtl_rx.demod` for a Minn-RTL
+    receiver of quarter Q on ``sys_p`` (by default the flagship: Q 512, N
+    2048, CP 512, 1,200 used bins) at K slots."""
+    return {"system": {"n_fft": sys_p.n_fft, "cp_len": sys_p.cp_len,
+                       "num_active": sys_p.num_active, "sample_rate_hz": sys_p.sample_rate_hz},
+            "detector": {"quarter_len": Q},
+            "receive": {"timing_offset": 0, "pilot_cp_offset": 5 * Q, "max_frames": K}}
+
+
+def rx_weak(x, starts, pilot, data, sys_p: SystemParams = SYS_30M72, Q: int = 512):
+    """The weak bins of the slots at ``starts`` (batch, K): where a float64
+    LS channel estimate of the slot's own window falls below `RXREF.WEAK`
+    of its RMS, the rule by which the benchmark leaves bins out of
+    ``eq_gap``; (batch, K, num_active) bool on x's device, computed in
+    blocks of `RXREF.ROWS` streams."""
+    c = lambda t: t.to(x.device, torch.complex128)  # noqa: E731
+    cfg = rx_config(starts.shape[1], sys_p, Q)
+    out = []
+    for r in range(0, x.shape[1], RXREF.ROWS):
+        h = RXREF.demod(x[:, r: r + RXREF.ROWS], starts[r: r + RXREF.ROWS].long(), cfg,
+                        c(pilot), c(data))["h"].abs()
+        out.append(h < RXREF.WEAK * h.square().mean(-1, keepdim=True).sqrt())
+    return torch.cat(out)
 
 
 def phase_receive(dev) -> dict:
-    """The batched receive (`receive_minn_rtl_frames`) on the card against
-    its CPU run on the same codes and table; then again under
+    """The batched receive (`receive_minn_rtl_frames`: on the card kernels G
+    and H around one FFT) against the same call's plain body on the card and
+    against its CPU run on the same codes and table, and the plain body on
+    the card against the CPU; then again under
     `torch.cuda.set_sync_debug_mode("error")`, so a host synchronisation
-    inside the call fails the phase; its counters."""
-    log("== phase 4b: the batched receive, card vs CPU, no host sync")
+    inside the call fails the phase; its counters and launches."""
+    log("== phase 4b: the batched receive, kernels G + H vs the plain body on the card and "
+        "on the CPU, no host sync")
     x, pilot, data = rx_frames_stimulus(**RX_BATCH)
     kw = dict(max_frames=8)
     det = dict(quarter_len=512, **KW, hysteresis=HYST, max_events=8, tie="last",
@@ -450,21 +509,31 @@ def phase_receive(dev) -> dict:
     pg, dg = pilot.to(dev), data.to(dev)
     out = receive_minn_rtl_frames(xg, table, pilot_used=pg, data_used=dg, **kw)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, modes = launch_counts(), mode_launch_counts()
     if min(counts["minn_rtl_metric"], counts["gate_events"]) < 1:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    if (counts["minn_rx_front"], counts["minn_rx_back"]) != (1, 1) or (
+            modes.get("minn_rx_front/int16"), modes.get("minn_rx_back/int16")) != (1, 1):
+        raise AssertionError(f"kernels G and H: {counts}, {modes}")
     calls, slots = receive_minn_rtl_frames.calls, receive_minn_rtl_frames.slots
     if (calls, slots) != (1, RX_BATCH["batch"] * kw["max_frames"]):
         raise AssertionError(f"receive counters {calls} calls, {slots} slots")
+    plain = RXP.receive_minn_rtl_frames_plain(xg, table, pilot_used=pg, data_used=dg, **kw)
     host_table = table._replace(**{f: getattr(table, f).cpu() for f in table._fields})
     cpu = receive_minn_rtl_frames(x, host_table, pilot_used=pilot, data_used=data, **kw)
     valid = int(cpu.valid.sum())
     if valid < RX_BATCH["batch"] * RX_BATCH["frames"] - 2:
         raise AssertionError(f"only {valid} frames found")
-    gaps = rx_gaps(RxSlots(*(t.cpu() for t in out)), cpu)
-    for k, tol in RX_TOL.items():
-        if not gaps[k] <= tol:
-            raise AssertionError(f"card vs CPU: {k} gap {gaps[k]} over {tol}")
+    host = lambda o: RxSlots(*(t.cpu() for t in o))  # noqa: E731
+    weak = rx_weak(x, cpu.starts, pilot, data)
+    gaps = {"plain_vs_cpu": rx_gaps(host(plain), cpu),
+            "kernels_vs_plain": rx_gaps(host(out), host(plain), weak),
+            "kernels_vs_cpu": rx_gaps(host(out), cpu, weak)}
+    for pair, tols in (("plain_vs_cpu", RX_TOL), ("kernels_vs_plain", RX_KERNEL_TOL),
+                       ("kernels_vs_cpu", RX_KERNEL_TOL)):
+        for k, tol in tols.items():
+            if not gaps[pair][k] <= tol:
+                raise AssertionError(f"{pair}: {k} gap {gaps[pair][k]} over {tol}")
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = receive_minn_rtl_frames(xg, table, pilot_used=pg, data_used=dg, **kw)
@@ -473,9 +542,148 @@ def phase_receive(dev) -> dict:
     torch.cuda.synchronize()
     if any(not torch.equal(a, b) for a, b in zip(again, out)):
         raise AssertionError("the call under sync debug mode differs from the first")
-    log(f"  {valid} frames: card == cpu within {RX_TOL} ({gaps}); no host sync inside the "
-        f"call under set_sync_debug_mode('error')")
-    return {"frames": valid, "gaps": gaps, "calls": receive_minn_rtl_frames.calls}
+    log(f"  {valid} frames, {int(weak[cpu.valid].sum())} weak bins left out of the kernels' "
+        f"eq gaps: {gaps}; no host sync inside the call under set_sync_debug_mode('error')")
+    return {"frames": valid, "gaps": gaps, "calls": receive_minn_rtl_frames.calls,
+            "launches": {k: counts[k] for k in ("minn_rx_front", "minn_rx_back")}}
+
+
+def rx_headline(dev):
+    """The frame cell's batch (512 streams of 262,144 int16 codes x 2
+    branches, 16 frames a stream) made on the card by the benchmark's
+    generator, its detector's arguments and table from kernels A + B, and
+    the receive's arguments."""
+    cell = BH.Cell(BH.load_spec(Path(TREE)), RX_CELL, Path(TREE))
+    cfg, tr = cell.config, cell.traffic
+    x = BS.streams(cfg, tr, BS.seeded(RX_SEED, dev), tr["batch"], tr["samples"], dev)
+    det = cfg["detector"]
+    det_kw = {k: det[k] for k in ("quarter_len", "smooth_shift", "threshold_value",
+                                  "threshold_frac_bits", "hysteresis", "max_events", "tie",
+                                  "emit_unclosed")}
+    table = F.minn_rtl_detect_fused(x, **det_kw)
+    sys_c, rx = cfg["system"], cfg["receive"]
+    sys_p = SystemParams(n_fft=sys_c["n_fft"], num_active=sys_c["num_active"],
+                         cp_len=sys_c["cp_len"], sample_rate_hz=sys_c["sample_rate_hz"])
+    pilot, data = (torch.as_tensor(v, dtype=torch.complex64, device=dev)
+                   for v in minn_rtl_frame.symbols(cfg))
+    kw = dict(sys=sys_p, params=MinnRTLParams(quarter_len=det["quarter_len"],
+                                              timing_offset=rx["timing_offset"]),
+              pilot_used=pilot, data_used=data, max_frames=rx["max_frames"])
+    return det_kw, x, table, kw
+
+
+def enqueue_ms(fn, reps: int = 20) -> float:
+    """Median host time to enqueue one fn() (no profiler attached, no host
+    sync between the calls, so the card runs behind the host)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def rx_kernel_work(batch: int, K: int, C: int, itemsize: int, n_fft: int, cp: int,
+                   A: int) -> dict:
+    """(bytes, flops) of kernels G and H alone, each input read once and each
+    output written once: G reads the table and each slot's pilot CP, pilot
+    and data symbol of every plane and writes 2 N complex64 and the slot's
+    start, valid and CFO; H reads each slot's 2 A used bins and valid (the
+    known values, shared, once) and writes A complex64, the EVM pair and
+    the gain."""
+    slots = batch * K
+    g = (slots * (cp + 2 * n_fft) * C * itemsize + batch * K * 5 + batch * 4
+         + slots * (2 * n_fft * 8 + 9))
+    g_flops = slots * (8 * (C // 2) * cp + 8 * (C // 2) * 2 * n_fft)
+    h = slots * (2 * A * 8 + 1 + A * 8 + 16) + 2 * A * 8
+    h_flops = slots * A * (2 * 11 + 2 * 8 + 6 + 5)
+    return {"front": (g, g_flops), "back": (h, h_flops)}
+
+
+def timing_receive(dev, card: str) -> dict:
+    """Phase 4c: the batched receive at the frame cell's batch.  Where the
+    tree has kernels G and H: one call of the kernel path against the plain
+    body on the card, under `RX_KERNEL_TOL` outside the weak bins, with one
+    launch of each kernel in int16 mode.  Then timed: the whole call (a
+    tree before the kernels runs its plain body there), the host's enqueue
+    of a batch (detection and receive) against the card's time for it,
+    each kernel and the FFT alone, and the plain body, the yardstick."""
+    det_kw, x, table, kw = rx_headline(dev)
+    B, L = x.shape[1], x.shape[2]
+    log(f"== phase 4c: the batched receive at the frame cell's batch, {B} x {L} x 2 int16, "
+        f"{kw['max_frames']} slots a stream")
+    run = lambda: receive_minn_rtl_frames(x, table, **kw)  # noqa: E731
+    plain = getattr(RXP, "receive_minn_rtl_frames_plain", RXP.receive_minn_rtl_frames)
+    run_plain = lambda: plain(x, table, **kw)  # noqa: E731
+    res = {}
+    if RK is not None:
+        # the kernel path against the plain body at this shape (K = E = 16),
+        # one launch of each kernel in int16 mode
+        reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts, modes = launch_counts(), mode_launch_counts()
+        if (counts["minn_rx_front"], counts["minn_rx_back"]) != (1, 1) or (
+                modes.get("minn_rx_front/int16"), modes.get("minn_rx_back/int16")) != (1, 1):
+            raise AssertionError(f"kernels G and H at the frame cell's batch: {counts}, {modes}")
+        ref = run_plain()
+        weak = rx_weak(x, ref.starts, kw["pilot_used"], kw["data_used"], kw["sys"],
+                       kw["params"].quarter_len)
+        gaps = rx_gaps(out, ref, weak)
+        for k, tol in RX_KERNEL_TOL.items():
+            if not gaps[k] <= tol:
+                raise AssertionError(f"kernels vs plain at the frame cell's batch: {k} gap "
+                                     f"{gaps[k]} over {tol}")
+        res.update(frames=int(ref.valid.sum()), weak_bins=int(weak[ref.valid].sum()),
+                   gaps=gaps, launches={k: counts[k] for k in ("minn_rx_front", "minn_rx_back")})
+        log(f"  kernels vs plain body on the card at this batch: {res['frames']} frames, "
+            f"{res['weak_bins']} weak bins left out of eq: {gaps}")
+        del out, ref, weak
+    res.update(receive_ms=cuda_ms(run), receive_device_ms=device_ms(run),
+               receive_kernel_ms=kernel_ms(run))
+    # the host's share of a batch, untraced: the time to enqueue the
+    # detection and the receive against the card's time for both
+    detect = lambda: F.minn_rtl_detect_fused(x, **det_kw)  # noqa: E731
+    step = lambda: receive_minn_rtl_frames(x, detect(), **kw)  # noqa: E731
+    res.update(detect_enqueue_ms=enqueue_ms(detect), receive_enqueue_ms=enqueue_ms(run),
+               step_enqueue_ms=enqueue_ms(step), step_device_ms=device_ms(step))
+    res["plain_ms"], res["plain_kernel_ms"] = cuda_ms(run_plain, reps=3), kernel_ms(run_plain, 3)
+    sysp, K = kw["sys"], min(kw["max_frames"], table.peak_idx.shape[1])
+    n_fft, cp, A = sysp.n_fft, sysp.cp_len, sysp.num_active
+    res["bound_ms"] = bound(*rx_demod_work(B, K, x.shape[0], x.element_size(), n_fft, cp, A,
+                                           table.peak_idx.shape[1]))[0]
+    if RK is not None:
+        Q = kw["params"].quarter_len
+        front = lambda: RK.minn_rx_front(  # noqa: E731
+            x, table, n_fft=n_fft, cp_len=cp, pilot_cp=5 * Q,
+            offset=kw["params"].timing_offset - 6 * Q, max_frames=kw["max_frames"],
+            sample_rate_hz=sysp.sample_rate_hz)
+        f = front()
+        bins = torch.fft.fft(f.comb)
+        back = lambda: RK.minn_rx_back(  # noqa: E731
+            bins, f.valid, kw["pilot_used"], kw["data_used"], num_active=A,
+            codes_dtype=x.dtype)
+        work = rx_kernel_work(B, K, x.shape[0], x.element_size(), n_fft, cp, A)
+        for name, fn in (("front", front), ("back", back)):
+            res[f"{name}_ms"], res[f"{name}_kernel_ms"] = cuda_ms(fn), kernel_ms(fn)
+            res[f"{name}_bound_ms"] = bound(*work[name])[0]
+            res[f"{name}_work"] = work[name]
+        res["fft_kernel_ms"] = kernel_ms(lambda: torch.fft.fft(f.comb))
+        del f, bins
+    torch.cuda.empty_cache()
+    log(f"  receive {res['receive_ms']:.4f} ms a batch (back to back "
+        f"{res['receive_device_ms']:.4f}; profiler {res['receive_kernel_ms']}) against its "
+        f"{res['bound_ms']:.4f} ms bound; host enqueue of a batch (detect + receive) "
+        f"{res['step_enqueue_ms']:.4f} ms against its {res['step_device_ms']:.4f} ms on the "
+        f"card (detect {res['detect_enqueue_ms']:.4f}, receive "
+        f"{res['receive_enqueue_ms']:.4f}); plain body {res['plain_ms']:.3f} ms (profiler "
+        f"{res['plain_kernel_ms']}); " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.items() if k.startswith(("front", "back", "fft"))
+            and isinstance(v, float)) + f"; card {card}")
+    return res
 
 
 def phase_headline(dev, card: str) -> dict:
@@ -3471,6 +3679,12 @@ C_KERNELS = {"int16 exact": "aa_metric_exact_kernel",
              "float32": "aa_metric_kernelIfLi4E"}
 
 
+#: kernels G and H: G's instantiations on the frame cell's codes and on
+#: float32 at two branches, and H
+RX_KERNELS = {"front int16": "minn_rx_front_kernelIsLi4E",
+              "front float32": "minn_rx_front_kernelIfLi4E", "back": "minn_rx_back_kernel"}
+
+
 def sass_mixes(lib, kernels: dict) -> dict:
     """`sass_mix` of each instantiation in ``kernels`` (`A_KERNELS`,
     `C_KERNELS`)."""
@@ -3500,7 +3714,8 @@ def main() -> int:
             spills.append(line.strip())
     if spills:
         raise AssertionError(f"a kernel spills registers: {spills}")
-    missing = [name for name in (*A_KERNELS.values(), *C_KERNELS.values())
+    missing = [name for name in (*A_KERNELS.values(), *C_KERNELS.values(),
+                                 *(RX_KERNELS.values() if RK is not None else ()))
                if name not in info.log]
     if info.log and missing:
         raise AssertionError(f"ptxas reported no registers for {missing}")
@@ -3517,6 +3732,7 @@ def main() -> int:
         out = {"tree": TREE, "e_sass": e_sass, "a_sass": a_sass, "c_sass": c_sass,
                "headline": phase_headline(dev, card),
                "long": phase_long(dev, card),
+               "receive": timing_receive(dev, card),
                "aa_headline": timing_aa(dev, card), "zc_headline": timing_zc(dev, card),
                "mf": timing_e(dev, card), "stream_kernels": phase_stream_kernels(dev, card)["res"],
                "latency": phase_latency(dev, card)}
@@ -3527,6 +3743,7 @@ def main() -> int:
     k = phase_kernels(dev)
     counts = phase_slice(dev)
     receive = phase_receive(dev)
+    receive["timing"] = timing_receive(dev, card)
     head = phase_headline(dev, card)
     long = phase_long(dev, card)
     aa_k = phase_aa_kernels(dev)
@@ -3621,6 +3838,12 @@ def main() -> int:
          zc_head["shard_launches"] + rest["modes"].get("zc_metric/primed_iq", 0),
          zc_head["shard_mag_err"], zc_head["shard_d_ms"],
          zc_head["plain_shard_d_ms"], zc_head["shard_work"], None),
+        ("minn_rx_front", "minn_rx_front.cu", "none (the receive's plain body before its FFT)",
+         receive["timing"]["launches"]["minn_rx_front"], receive["timing"]["gaps"]["cfo_hz"],
+         receive["timing"]["front_ms"], None, receive["timing"]["front_work"], None),
+        ("minn_rx_back", "minn_rx_back.cu", "none (the receive's plain body after its FFT)",
+         receive["timing"]["launches"]["minn_rx_back"], receive["timing"]["gaps"]["eq"],
+         receive["timing"]["back_ms"], None, receive["timing"]["back_work"], None),
         ("matched_filter_ols", "matched_filter.cu", "ofdm_sync_tpu/kernels/pallas_mf.py:137",
          zc_launches["matched_filter_ols"] + modes["matched_filter_ols"], zc_k["mf_err"],
          zc_head["e_ms"],

@@ -8,6 +8,8 @@
 * `aa_fused` -- kernel C ([A][A] metric and detect) with B's capture mode
 * `zc_fused` -- kernel D (ZC CFAR, magnitude and IQ modes) with B
 * `matched_filter` -- kernel E (the ZC matched filter, overlap-save FFT)
+* `minn_rx` -- kernels G and H, the batched Minn-RTL receive's front and
+  back ends around its FFT
 * `streaming_chunked` -- the chunked streaming receivers on those kernels
 * `build`, `launches` -- the nvcc build of `csrc/` and the launch counts
 
@@ -37,7 +39,7 @@ _MINN_RTL_FUSED = (
 )
 _SUBMODULES = (
     "streaming", "streaming_chunked", "minn_rtl_fused", "aa_fused", "zc_fused",
-    "matched_filter", "build", "launches",
+    "matched_filter", "minn_rx", "build", "launches",
 )
 
 __all__ = list(_STREAMING + _MINN_RTL_FUSED) + list(_SUBMODULES)

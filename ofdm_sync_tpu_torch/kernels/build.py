@@ -29,6 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 #: C signatures of the library's entry points (all return cudaError_t).
 SIGNATURES = {
@@ -46,6 +47,9 @@ SIGNATURES = {
     "zc_cfar_iq": [_I, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _LL, _I, _F, _F, _F, _F,
                    _P, _P, _P, _P],
     "matched_filter_f32": [_P, _P, _P, _I, _I, _LL, _I, _LL, _I, _P, _P],
+    "minn_rx_front": [_I, _P, _I, _I, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _LL, _D, _P, _P, _P, _P, _P],
+    "minn_rx_back": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

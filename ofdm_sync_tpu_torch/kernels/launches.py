@@ -17,12 +17,15 @@ above (int16 codes without a history), whose P and M the peak capture
 for int16 codes of up to two branches without a history, which take its
 exact integer path (`aa_fused.exact_route`); D's IQ mode with a
 halo or a global base: ``primed_iq``; kernel F, the Minn-RTL stream step:
-``int16`` for a chunk of int16 codes).  A run shows that it went through
-the kernels by resetting the counts, driving its path and reading them.
+``int16`` for a chunk of int16 codes; kernels G and H, the batched
+Minn-RTL receive's front and back ends (`minn_rx`): ``int16`` or
+``float32``, the type of the codes the slots were read from).  A run
+shows that it went through the kernels by resetting the counts, driving
+its path and reading them.
 Each wrapper's spans carry its name too (`utils.profiling.wrapper_spans`),
 so a span, a launch count and a kernel line up.
 
-A plain-PyTorch stage with no kernel of its own may count its calls too
+A stage may count its calls too
 (`pipelines.fused_rx.receive_minn_rtl_frames`: ``.calls`` and ``.slots``);
 its module appends the reset of those counters to `COUNTER_RESETS`, and
 `reset_launch_counts` runs them with the launch counts.
@@ -33,11 +36,12 @@ from __future__ import annotations
 from ofdm_sync_tpu_torch.kernels.aa_fused import aa_metric, aa_peak_capture
 from ofdm_sync_tpu_torch.kernels.matched_filter import matched_filter_ols
 from ofdm_sync_tpu_torch.kernels.minn_rtl_fused import gate_events, minn_rtl_metric, minn_rtl_step
+from ofdm_sync_tpu_torch.kernels.minn_rx import minn_rx_back, minn_rx_front
 from ofdm_sync_tpu_torch.kernels.zc_fused import zc_metric
 
-#: one wrapper per kernel: A, B, C, D, E, F and C's peak capture
+#: one wrapper per kernel: A, B, C, D, E, F, C's peak capture, G and H
 KERNEL_WRAPPERS = (minn_rtl_metric, gate_events, aa_metric, zc_metric, matched_filter_ols,
-                   minn_rtl_step, aa_peak_capture)
+                   minn_rtl_step, aa_peak_capture, minn_rx_front, minn_rx_back)
 #: resets of the call counters of plain-PyTorch stages, appended by their modules
 COUNTER_RESETS: list = []
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ofdm_sync_tpu_torch.device import resolve_device
-from ofdm_sync_tpu_torch.kernels import launches
+from ofdm_sync_tpu_torch.kernels import launches, minn_rx
 from ofdm_sync_tpu_torch.models.detectors import AADetector, MinnRTLDetector
 from ofdm_sync_tpu_torch.ops.channel import (
     apply_cfo,
@@ -233,9 +233,10 @@ class RxSlots(NamedTuple):
     eq: torch.Tensor       # (batch, K, num_active) complex64: equalized data, gain-aligned
 
 
-#: the receive's spans: the whole call, then its stages in order
+#: the receive's spans: the whole call, then its stages in order (on a
+#: card: kernel G, the FFT, kernel H)
 RECEIVE_SPAN = SPAN_PREFIX + "minn_rtl_receive"
-RECEIVE_STAGES = tuple(f"{RECEIVE_SPAN}.{s}" for s in ("extract", "cfo", "demod"))
+RECEIVE_STAGES = tuple(f"{RECEIVE_SPAN}.{s}" for s in ("front", "fft", "back"))
 
 
 def receive_minn_rtl_frames(
@@ -262,42 +263,83 @@ def receive_minn_rtl_frames(
     the antenna mean, the FFT's used bins, the LS estimate on the pilot,
     the equalized data symbol aligned by its LS gain, its EVM.  Every slot
     is computed under its mask, in complex64, with no host synchronisation
-    and no shape that depends on the data.  Counts ``.calls`` and
-    ``.slots`` (batch x K) a call."""
+    and no shape that depends on the data.
+
+    On a card the stages before the FFT run as kernel G and those after it
+    as kernel H (`kernels.minn_rx`), with one ``torch.fft.fft`` between
+    them; a CPU tensor takes the plain body,
+    `receive_minn_rtl_frames_plain`, the card's oracle.  Counts ``.calls``
+    and ``.slots`` (batch x K) a call."""
+    body = _receive_on_card if x.is_cuda else receive_minn_rtl_frames_plain
+    with span(RECEIVE_SPAN):
+        out = body(x, table, sys=sys, params=params, pilot_used=pilot_used,
+                   data_used=data_used, max_frames=max_frames)
+    receive_minn_rtl_frames.calls += 1
+    receive_minn_rtl_frames.slots += out.valid.numel()
+    return out
+
+
+def receive_minn_rtl_frames_plain(
+    x: torch.Tensor,
+    table: GateEvents,
+    *,
+    sys: SystemParams = SYS_30M72,
+    params: MinnRTLParams = MinnRTLParams(),
+    pilot_used: torch.Tensor,
+    data_used: torch.Tensor,
+    max_frames: int = 4,
+) -> RxSlots:
+    """`receive_minn_rtl_frames` in plain PyTorch on x's device: the path
+    of a CPU tensor, and the oracle of kernels G and H on a card."""
     Q, n_fft, cp, fs = params.quarter_len, sys.n_fft, sys.cp_len, sys.sample_rate_hz
     pilot_cp = 5 * Q                       # local offset of the pilot's CP
     sym_len = n_fft + cp
     dev = x.device
-    with span(RECEIVE_SPAN):
-        with span(RECEIVE_STAGES[0]):
-            starts, valid = frame_slots(table, x.shape[-1], frame_len=pilot_cp + 2 * sym_len,
-                                        timing_offset=params.timing_offset - 6 * Q,
-                                        max_frames=max_frames)
-            win = slot_windows(x, starts + pilot_cp, 2 * sym_len).to(torch.float32)
-            ants = torch.complex(win[0::2], win[1::2])          # (branches, batch, K, 2(N+CP))
-        with span(RECEIVE_STAGES[1]):
-            cfo = cfo_from_cp_windows(ants, n_fft, cp, fs)      # (batch, K)
-        with span(RECEIVE_STAGES[2]):
-            at = torch.arange(cp, cp + n_fft, dtype=torch.int32, device=dev)
-            at = torch.stack([at, at + sym_len])                # pilot, data: (2, N)
-            tone = cfo_tone((pilot_cp + at).reshape(-1), pilot_cp + 2 * sym_len, -cfo, fs)
-            sym = ants[..., at.long()]                          # (branches, batch, K, 2, N)
-            comb = (sym * tone.unflatten(-1, at.shape)).mean(dim=0)
-            half = sys.num_active // 2                          # the used bins, unshifted
-            used = torch.cat([torch.arange(n_fft - half, n_fft, device=dev),
-                              torch.arange(1, half + 1, device=dev)])
-            bins = torch.fft.fft(comb)[..., used]
-            h_est = ls_channel_estimate(bins[..., 0, :], pilot_used)
-            eq, gain = align_complex_gain(equalize(bins[..., 1, :], h_est), data_used)
-            evm_rms, evm_db = evm_rms_db(eq, data_used)
-            zero = lambda t: torch.where(  # noqa: E731
-                valid.reshape(valid.shape + (1,) * (t.ndim - valid.ndim)), t,
-                torch.zeros((), dtype=t.dtype, device=dev))
-            out = RxSlots(zero(starts).to(torch.int32), valid, zero(cfo), zero(evm_rms),
-                          zero(evm_db), zero(gain), zero(eq))
-    receive_minn_rtl_frames.calls += 1
-    receive_minn_rtl_frames.slots += valid.numel()
-    return out
+    with span(RECEIVE_STAGES[0]):
+        starts, valid = frame_slots(table, x.shape[-1], frame_len=pilot_cp + 2 * sym_len,
+                                    timing_offset=params.timing_offset - 6 * Q,
+                                    max_frames=max_frames)
+        win = slot_windows(x, starts + pilot_cp, 2 * sym_len).to(torch.float32)
+        ants = torch.complex(win[0::2], win[1::2])          # (branches, batch, K, 2(N+CP))
+        cfo = cfo_from_cp_windows(ants, n_fft, cp, fs)      # (batch, K)
+        at = torch.arange(cp, cp + n_fft, dtype=torch.int32, device=dev)
+        at = torch.stack([at, at + sym_len])                # pilot, data: (2, N)
+        tone = cfo_tone((pilot_cp + at).reshape(-1), pilot_cp + 2 * sym_len, -cfo, fs)
+        sym = ants[..., at.long()]                          # (branches, batch, K, 2, N)
+        comb = (sym * tone.unflatten(-1, at.shape)).mean(dim=0)
+    with span(RECEIVE_STAGES[1]):
+        half = sys.num_active // 2                          # the used bins, unshifted
+        used = torch.cat([torch.arange(n_fft - half, n_fft, device=dev),
+                          torch.arange(1, half + 1, device=dev)])
+        bins = torch.fft.fft(comb)[..., used]
+    with span(RECEIVE_STAGES[2]):
+        h_est = ls_channel_estimate(bins[..., 0, :], pilot_used)
+        eq, gain = align_complex_gain(equalize(bins[..., 1, :], h_est), data_used)
+        evm_rms, evm_db = evm_rms_db(eq, data_used)
+        zero = lambda t: torch.where(  # noqa: E731
+            valid.reshape(valid.shape + (1,) * (t.ndim - valid.ndim)), t,
+            torch.zeros((), dtype=t.dtype, device=dev))
+        return RxSlots(zero(starts).to(torch.int32), valid, zero(cfo), zero(evm_rms),
+                       zero(evm_db), zero(gain), zero(eq))
+
+
+def _receive_on_card(x, table, *, sys, params, pilot_used, data_used, max_frames) -> RxSlots:
+    """`receive_minn_rtl_frames` on a card: kernel G, the FFT, kernel H.
+    Each kernel takes every numerology `SystemParams` admits, so H refuses
+    none after G ran."""
+    Q = params.quarter_len
+    with span(RECEIVE_STAGES[0]):
+        front = minn_rx.minn_rx_front(
+            x, table, n_fft=sys.n_fft, cp_len=sys.cp_len, pilot_cp=5 * Q,
+            offset=params.timing_offset - 6 * Q, max_frames=max_frames,
+            sample_rate_hz=sys.sample_rate_hz)
+    with span(RECEIVE_STAGES[1]):
+        bins = torch.fft.fft(front.comb)
+    with span(RECEIVE_STAGES[2]):
+        evm_rms, evm_db, gain, eq = minn_rx.minn_rx_back(
+            bins, front.valid, pilot_used, data_used, num_active=sys.num_active,
+            codes_dtype=x.dtype)
+    return RxSlots(front.starts, front.valid, front.cfo_hz, evm_rms, evm_db, gain, eq)
 
 
 def _reset_receive_counts() -> None:

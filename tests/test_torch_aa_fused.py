@@ -250,4 +250,4 @@ def test_cpu_path_counts_no_launch(rng):
     A.aa_metric_planar(torch.zeros((4, 1, 300)), half_len=16)
     assert launch_counts() == dict.fromkeys(
         ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols",
-         "minn_rtl_step", "aa_peak_capture"), 0)
+         "minn_rtl_step", "aa_peak_capture", "minn_rx_front", "minn_rx_back"), 0)

@@ -130,7 +130,7 @@ def test_cpu_path_counts_no_launch(rng):
                             **KW, hysteresis=2)
     assert launch_counts() == dict.fromkeys(
         ("minn_rtl_metric", "gate_events", "aa_metric", "zc_metric", "matched_filter_ols",
-         "minn_rtl_step", "aa_peak_capture"), 0)
+         "minn_rtl_step", "aa_peak_capture", "minn_rx_front", "minn_rx_back"), 0)
 
 
 @pytest.mark.parametrize("dtype,C,q,hist,exact", [

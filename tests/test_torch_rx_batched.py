@@ -142,7 +142,7 @@ def test_counters_and_spans():
     assert RX.receive_minn_rtl_frames.slots == BATCH * 16 + BATCH * 3
     assert RX.RECEIVE_SPAN == "ofdm_sync.minn_rtl_receive"
     assert RX.RECEIVE_STAGES == tuple(f"ofdm_sync.minn_rtl_receive.{s}"
-                                      for s in ("extract", "cfo", "demod"))
+                                      for s in ("front", "fft", "back"))
     spans = [e for e in prof.events() if e.name.startswith(RX.RECEIVE_SPAN)]
     for name in (RX.RECEIVE_SPAN, *RX.RECEIVE_STAGES):
         assert sum(e.name == name for e in spans) == 2, name
